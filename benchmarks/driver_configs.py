@@ -1,12 +1,12 @@
 """BASELINE.md eval-config sweep (configs 1-5, scaled to available devices).
 
-Run on TPU:  PYTHONPATH=... python benchmarks/driver_configs.py
-Run on CPU mesh: JAX_PLATFORMS=cpu python benchmarks/driver_configs.py --cpu8
-CI smoke:    python benchmarks/driver_configs.py --cpu8 --smoke
+On the accelerator:  python benchmarks/driver_configs.py
+On the CPU mesh:     python benchmarks/driver_configs.py --cpu8   (64³ grids)
+CI smoke:            python benchmarks/driver_configs.py --cpu8 --smoke
 
-Prints one JSON line per config: time, accuracy, transpose GB/s/chip; with
-``--out FILE`` also writes the summary JSON there (recorded sweeps live in
-benchmarks/results/).
+Prints one JSON line per config: time, accuracy, transpose GB/s per device;
+with ``--out FILE`` also writes the summary JSON there.  Times from the CPU
+mesh measure XLA:CPU, not a device.
 """
 
 import json
@@ -24,7 +24,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 8)
     smoke = "--smoke" in sys.argv
+    # BASELINE's 256³ on the accelerator; 64³ keeps the CPU mesh quick
+    n3 = 32 if smoke else (64 if "--cpu8" in sys.argv else 256)
     import jax
+    jax.config.update("jax_enable_x64", True)   # config 1: native "double"
     from mpifft4py_tpu import slab, line, pencil
     from mpifft4py_tpu.utils.profiling import measure, transpose_stats
 
@@ -75,13 +78,13 @@ def main():
     report("2_line_r2c_512sq", FFT, t, err)
 
     # 3. slab R2C 256^3 with dealiased (2/3-rule and 3/2-rule) transforms
-    N = 32 if smoke else (256 if jax.default_backend() == "tpu" else 64)
+    N = n3
     FFT = slab.R2C(np.array([N] * 3), np.array([TAU] * 3), None, "single")
     u32 = rng.standard_normal((N, N, N)).astype(np.float32)
     fwd23 = FFT.forward_fn("2/3-rule")
     bwd = FFT.backward_fn()
     t = measure(lambda v: bwd(fwd23(v)), FFT.shard_real(u32))
-    # accuracy via plain roundtrip (relative — the driver's units)
+    # accuracy via plain roundtrip (relative error)
     ub = np.asarray(FFT.ifftn(FFT.fftn(u32)))
     err = np.abs(ub - u32).max() / np.abs(u32).max()
     report("3_slab_r2c_dealiased", FFT, t, err)
@@ -91,11 +94,10 @@ def main():
     t32 = measure(lambda f: fwd32(bwd32(f)), fu0)
     report("3b_slab_r2c_padded32", FFT, t32, err)
 
-    # 4s. pencil on ONE chip (P1=P2=1: both grouped all-to-alls degenerate;
-    # P2==1 routes through the packed MXU pipeline) — records config 4's
-    # decomposition class on real TPU hardware where only one chip exists
+    # 4s. pencil on ONE device (P1=P2=1: both grouped all-to-alls
+    # degenerate) — config 4's decomposition class where only one exists
     if ndev < 4:
-        N = 32 if smoke else (256 if jax.default_backend() == "tpu" else 64)
+        N = n3
         FFT = pencil.R2C(np.array([N] * 3), np.array([TAU] * 3), 1, "single")
         u32 = rng.standard_normal((N, N, N)).astype(np.float32)
         out = FFT.gather(FFT.fftn(u32))[..., :FFT.Nf]
@@ -107,7 +109,7 @@ def main():
 
     # 4. pencil R2C on a 2D mesh (P1xP2)
     if ndev >= 4:
-        N = 32 if smoke else (256 if jax.default_backend() == "tpu" else 64)
+        N = n3
         FFT = pencil.R2C(np.array([N] * 3), np.array([TAU] * 3), None, "single")
         u32 = rng.standard_normal((N, N, N)).astype(np.float32)
         fu = FFT.fftn(u32)
@@ -127,49 +129,6 @@ def main():
         fu0 = FFTp.shard_complex(FFT.gather(fu))
         t = measure(lambda f: fwd32(bwd32(f)), fu0)
         report("5_pencil_dns_overlapped_padded", FFTp, t, err)
-
-    # 6. transpose GB/s/chip, MEASURED (BASELINE.json:2's second metric).
-    # One chip cannot exercise ICI; the honest hardware proxy is the P=1
-    # self-RDMA all-to-all through the SAME Pallas kernel machinery the
-    # multi-chip transpose uses — a straight HBM->HBM copy, so the number is
-    # the HBM floor the transpose rides, not an ICI measurement.
-    try:
-        import jax as _jax
-        from jax.sharding import PartitionSpec as _P
-        from mpifft4py_tpu.parallel.mesh import AXIS, slab_mesh
-        from mpifft4py_tpu.parallel.rdma import rdma_all_to_all, rdma_interpret
-
-        mesh = slab_mesh(1)
-        # payload large enough to amortise the ~1.3 ms kernel/barrier
-        # overhead (measured: 32 MiB -> 25 GB/s, 512 MiB -> 113 GB/s payload;
-        # marginal rate ~150 GB/s payload = ~300 GB/s HBM read+write)
-        shape = (64, 64, 128) if (smoke or jax.default_backend() != "tpu") \
-            else (512, 512, 512)
-        x = jax.device_put(
-            rng.standard_normal(shape).astype(np.float32),
-            jax.sharding.NamedSharding(mesh, _P(AXIS, None, None)))
-        interp = rdma_interpret()
-
-        def selfcopy(v):
-            return rdma_all_to_all(v, AXIS, 1, 0, 1, mesh_axes=(AXIS,),
-                                   interpret=interp)
-        fn = _jax.shard_map(selfcopy, mesh=mesh,
-                            in_specs=_P(AXIS, None, None),
-                            out_specs=_P(AXIS, None, None), check_vma=False)
-        t_copy = measure(fn, x, iters=20)
-        payload = int(np.prod(shape)) * 4
-        row = {"config": "6_rdma_selfcopy_transpose_bw",
-               "roundtrip_ms": round(t_copy * 1e3, 3),
-               "payload_bytes": payload,
-               "transpose_GBps_chip": round(payload / t_copy / 1e9, 2),
-               "devices": 1,
-               "note": "P=1 self-RDMA HBM copy via the rdma transpose kernel; "
-                       "ICI untestable on one chip"}
-        results.append(row)
-        print(json.dumps(row), flush=True)
-    except Exception as e:  # never fail the sweep over the proxy metric
-        print(json.dumps({"config": "6_rdma_selfcopy_transpose_bw",
-                          "error": repr(e)[:200]}), flush=True)
 
     print(json.dumps({"summary": results}))
     if "--out" in sys.argv:

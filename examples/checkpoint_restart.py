@@ -1,8 +1,7 @@
-"""Production checkpoint/restart workflow, TPU-native.
+"""Production checkpoint/restart workflow.
 
-Demonstrates the three resume mechanisms on the packed fast layout:
-  1. mid-run checkpoint of the packed (Ur, Ui) state (utils.io.save_state —
-     stored as float pairs, no complex materialisation),
+Demonstrates the three resume mechanisms:
+  1. mid-run checkpoint of the spectral state (utils.io.save_state),
   2. bit-identical continuation from the restored state,
   3. resolution-change restart: regrid the saved spectrum to a finer grid
      (utils.spectral.regrid) and continue there.
@@ -32,12 +31,7 @@ def main():
     L = np.array([2 * np.pi] * 3)
     FFT = slab.R2C(grid, L, None, "single")
     kw = dict(nu=1e-3, dt=0.005, dealias="2/3-rule")
-    try:
-        solver = NavierStokes3D(FFT, spectral_layout="packed", **kw)
-    except ValueError:
-        solver = NavierStokes3D(FFT, **kw)
-    packed = solver.spectral_layout == "packed"
-    print(f"spectral_layout = {solver.spectral_layout}")
+    solver = NavierStokes3D(FFT, **kw)
 
     U = solver.taylor_green()
     for _ in range(steps):
@@ -50,7 +44,7 @@ def main():
 
     # --- restart: fresh transform + solver, restore, continue -------------
     FFT2 = slab.R2C(grid, L, None, "single")
-    solver2 = NavierStokes3D(FFT2, spectral_layout=solver.spectral_layout, **kw)
+    solver2 = NavierStokes3D(FFT2, **kw)
     U2, meta = io.load_state(path, FFT2)
     print(f"restored step={int(meta['step'])}  E={solver2.energy(U2):.8f} "
           f"(must equal the checkpoint energy)")
@@ -62,17 +56,11 @@ def main():
 
     # --- resolution-change restart: continue on a 1.5x finer grid ---------
     M = np.array([3 * N // 2] * 3)
-    fu = solver2.from_packed(U2) if packed else U2
-    host = FFT2.gather(fu)
+    host = FFT2.gather(U2)
     fine = regrid(host, N_new=M, N_old=grid)   # handles the component stack
     FFT3 = slab.R2C(M, L, None, "single")
-    try:
-        solver3 = NavierStokes3D(FFT3, spectral_layout="packed", **kw)
-    except ValueError:
-        solver3 = NavierStokes3D(FFT3, **kw)
+    solver3 = NavierStokes3D(FFT3, **kw)
     U3 = FFT3.shard_complex(fine.astype(np.complex64))
-    if solver3.spectral_layout == "packed":
-        U3 = solver3.to_packed(U3)
     print(f"regrid {N}^3 -> {int(M[0])}^3:  E={solver3.energy(U3):.8f} "
           f"(continuous across the regrid to the f32 diagnostic's ~1e-5; "
           f"spectrally it is exact — tests/test_io.py)")

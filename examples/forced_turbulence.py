@@ -23,22 +23,13 @@ def main():
 
     from mpifft4py_tpu import slab
     from mpifft4py_tpu.models.navier_stokes import NavierStokes3D
-    from mpifft4py_tpu.models.diagnostics import (energy_spectrum,
-                                                  energy_spectrum_packed)
+    from mpifft4py_tpu.models.diagnostics import energy_spectrum
 
     grid = np.array([N, N, N])
     L = np.array([2 * np.pi] * 3)
     FFT = slab.R2C(grid, L, None, "single")
-    # the packed spectral layout (round 3: supports band forcing and P>1)
-    # is ~1.45x faster per step when available; fall back to complex
-    kw = dict(nu=0.005, dt=0.005, dealias="2/3-rule",
-              forcing_band=(0.5, 2.5), forcing_rate=0.1)
-    try:
-        solver = NavierStokes3D(FFT, spectral_layout="packed", **kw)
-    except ValueError:
-        solver = NavierStokes3D(FFT, **kw)
-    packed = solver.spectral_layout == "packed"
-    print(f"spectral_layout = {solver.spectral_layout}")
+    solver = NavierStokes3D(FFT, nu=0.005, dt=0.005, dealias="2/3-rule",
+                            forcing_band=(0.5, 2.5), forcing_rate=0.1)
     U = solver.taylor_green()
     print(f"t=0      E={solver.energy(U):.6f}")
 
@@ -47,10 +38,7 @@ def main():
         U = solver.step(U)
         if i % max(1, steps // 5) == 0:
             e = solver.energy(U)
-            # packed-native spectrum: no transient complex unpack (at 512³
-            # the unpack would spike ~1.6 GB of HBM mid-run)
-            Ek = (energy_spectrum_packed(FFT, U) if packed
-                  else np.asarray(energy_spectrum(FFT, U)))
+            Ek = np.asarray(energy_spectrum(FFT, U))
             lo = float(Ek[:3].sum())
             hi = float(Ek[3:].sum())
             print(f"t={i * solver.dt:<8.3f} E={e:.6f}  "

@@ -1,4 +1,4 @@
-"""MHD Taylor–Green demo: kinetic↔magnetic energy exchange, TPU-native.
+"""MHD Taylor–Green demo: kinetic↔magnetic energy exchange.
 
 Runs the incompressible MHD solver (models.MHD3D) on whatever devices are
 visible; prints kinetic/magnetic energies and the solenoidality of both
@@ -33,13 +33,7 @@ def main():
     else:
         FFT = slab.R2C(grid, L, None, "single")
 
-    # the packed float-pair layout is ~1.3x faster per step when available
-    kw = dict(nu=1e-3, eta=1e-3, dt=0.005, dealias="2/3-rule")
-    try:
-        solver = MHD3D(FFT, spectral_layout="packed", **kw)
-    except ValueError:
-        solver = MHD3D(FFT, **kw)
-    print(f"spectral_layout = {solver.spectral_layout}")
+    solver = MHD3D(FFT, nu=1e-3, eta=1e-3, dt=0.005, dealias="2/3-rule")
     UB = solver.taylor_green_mhd(b0=0.3)
     eu, eb = solver.energies(UB)
     print(f"t=0      E_kin={eu:.6f}  E_mag={eb:.6f}")

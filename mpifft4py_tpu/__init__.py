@@ -1,6 +1,6 @@
-"""mpifft4py_tpu — TPU-native distributed FFTs for pseudo-spectral solvers.
+"""mpifft4py_tpu — distributed FFTs in JAX for pseudo-spectral solvers.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of
+A ground-up JAX/XLA re-design with the capabilities of
 ``spectralDNS/mpiFFT4py`` (parallel 2D/3D real↔complex and complex↔complex FFTs
 with slab/pencil/line domain decompositions and 2/3- & 3/2-rule dealiasing).
 See SURVEY.md for the layer map and parity inventory.
@@ -13,7 +13,7 @@ Public surface (reference parity — mpiFFT4py/__init__.py):
     from mpifft4py_tpu import work_arrays, datatypes
     from mpifft4py_tpu import fft, ifft, rfftn, irfftn, dct, ...  # serial tier
 
-TPU-native additions: every transform object exposes ``real_sharding()`` /
+Additions to the reference API: every transform object exposes ``real_sharding()`` /
 ``complex_sharding()`` / ``forward_fn()`` / ``backward_fn()`` so transforms
 compose into larger jitted SPMD programs over a ``jax.sharding.Mesh``.
 """

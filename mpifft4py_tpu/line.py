@@ -1,4 +1,4 @@
-"""Line (1D) decomposition of 2D FFTs — TPU-native.
+"""Line (1D) decomposition of 2D FFTs.
 
 Reference analog: ``mpiFFT4py/line.py`` ``R2C`` (reference mount empty at build
 time; parity target SURVEY.md §2.1 #5).  Algorithm:
@@ -13,7 +13,7 @@ Layouts (global shapes; ``"p"`` = the 1D mesh axis):
 
 With only two axes the halved Hermitian axis *must* be sharded in spectral
 space (unlike slab, which redistributes full axes only).  MPI handles the
-uneven Nf = N1//2+1 with Alltoallw derived datatypes; the TPU-static-shape
+uneven Nf = N1//2+1 with Alltoallw derived datatypes; the static-shape
 equivalent is *alignment padding*: the spectral axis is padded to
 ``Nfp = ceil(Nf/P)·P`` with structural zeros (modes k >= Nf).  ``Nf`` and
 ``Nfp`` are both exposed; zeros are transparent to spectral algebra (masks and
@@ -168,128 +168,7 @@ class R2C(BaseFFT):
         pad = [(0, 0), (0, nfp - x.shape[1])]
         return jnp.pad(x, pad)
 
-    # -- Pallas serial fast path (single device) --------------------------------
-
-    def _pallas2d_ok(self, dealias) -> bool:
-        """Serial complex-layout 2D tier selector — default XLA since round 4.
-
-        Measured on chip (BENCH.md round 4): the Pallas serial-2D tier wins
-        the bare 1024² round trip (0.78 vs 0.91 ms) but LOSES the NS2D
-        consumer step 1.7× (27.1 vs 15.5 ms/step, reproduced twice) — 2D
-        consumer steps are per-op-overhead-bound and the tier's extra
-        kernel+boundary count per transform dominates.  XLA also ties or
-        wins the 512² round trip (0.600 vs 0.625 ms).  The packed 2D pair
-        layout (models/navier_stokes_2d.py) and the distributed tier
-        (`_pallas_dist_ok`) are unaffected.  MPIFFT4PY_TPU_PALLAS2D=1
-        re-enables for A/Bs."""
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS2D", "0") not in ("1", "true"):
-            return False
-        if self.policy.path != "native" or self.float != np.float32:
-            return False
-        if jax.default_backend() != "tpu":
-            return False
-        from .ops import pallas_fft3d as p3
-        dims = self.M if dealias == "3/2-rule" else self.N
-        return p3.supported_r2c(int(dims[1])) and p3.supported_c2c(int(dims[0]))
-
-    def _serial_rfft2_pallas(self, u):
-        """rfft2 via MXU kernels; returns complex (N0, Nf) in standard layout."""
-        from .ops import pallas_fft3d as p3
-        n1 = u.shape[1]
-        nf = n1 // 2 + 1
-        if (n1 // 2) % 128 == 0:
-            yr, yi = p3.rfft_last_packed(u)                  # (N0, h)
-            yr, yi = p3.fft_axis_planar(yr, yi, axis=0)
-            p0, pny = p3.unpack_plane0(yr, yi, axes=(0,))    # (N0,) each
-            body = jax.lax.complex(yr, yi)[:, 1:]
-            return jnp.concatenate([p0[:, None], body, pny[:, None]], axis=1)
-        yr, yi = p3.rfft_last_planar(u)                      # (N0, nfp_roundup)
-        yr, yi = p3.fft_axis_planar(yr, yi, axis=0)
-        return jax.lax.complex(yr, yi)[:, :nf]
-
-    def _serial_irfft2_pallas(self, fu, n1: int):
-        """inverse of _serial_rfft2_pallas; fu (N0, Nf) standard complex."""
-        from .ops import pallas_fft3d as p3
-        nf = n1 // 2 + 1
-        if (n1 // 2) % 128 == 0:
-            qr, qi = p3.pack_plane0(fu[:, 0], fu[:, nf - 1])
-            br = jnp.concatenate([qr[:, None],
-                                  jnp.real(fu[:, 1:nf - 1]).astype(jnp.float32)],
-                                 axis=1)
-            bi = jnp.concatenate([qi[:, None],
-                                  jnp.imag(fu[:, 1:nf - 1]).astype(jnp.float32)],
-                                 axis=1)
-            yr, yi = p3.fft_axis_planar(br, bi, axis=0, inverse=True)
-            return p3.irfft_last_packed(yr, yi, n1)
-        from .ops.pallas_fft3d import _round_up
-        nfp = _round_up(nf, 128)
-        fup = jnp.pad(fu, [(0, 0), (0, nfp - fu.shape[1])])
-        yr = jnp.real(fup).astype(jnp.float32)
-        yi = jnp.imag(fup).astype(jnp.float32)
-        yr, yi = p3.fft_axis_planar(yr, yi, axis=0, inverse=True)
-        return p3.irfft_last_planar(yr, yi, n1)
-
-    # -- Pallas distributed pipeline (MXU local stages on EVERY rank) ----------
-
-    def _pallas_dist_ok(self, dealias) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if self.policy.path != "native" or self.float != np.float32:
-            return False
-        if not (jax.default_backend() == "tpu"
-                or os.environ.get("MPIFFT4PY_TPU_PALLAS_DIST") == "force"):
-            return False
-        if dealias == "3/2-rule" or self.P > 128:
-            return False
-        from .ops import pallas_fft3d as p3
-        return p3.supported_r2c(int(self.N[1])) and p3.supported_c2c(int(self.N[0]))
-
-    def _fwd_dist_pallas(self, u, dealias):
-        from .ops import pallas_fft3d as p3
-        yr, yi = p3.rfft_last_planar(u)                # (Np0, round_up(Nf,128))
-        yr, yi = p3.fit_width(yr, yi, self.Nfp)
-        pair = self._stage((yr, yi), AXIS, 1, 0,
-                           lambda t: p3.fft_axis_planar(t[0], t[1], axis=0),
-                           pipeline_axis=1, block_chunking="split")
-        x = lax.complex(pair[0], pair[1])
-        if dealias == "2/3-rule":
-            x = jnp.where(self._dealias_local(), x, 0)
-        return x
-
-    def _bwd_dist_pallas(self, fu, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "2/3-rule":
-            fu = jnp.where(self._dealias_local(), fu, 0)
-        pr = jnp.real(fu).astype(jnp.float32)
-        pi = jnp.imag(fu).astype(jnp.float32)
-        pair = self._stage((pr, pi), AXIS, 0, 1, pipeline_axis=1,
-                           block_chunking="concat",
-                           pre_fn=lambda t: p3.fft_axis_planar(
-                               t[0], t[1], axis=0, inverse=True))
-        w = p3._round_up(self.Nf, 128)
-        yr, yi = p3.fit_width(pair[0][..., :self.Nf],
-                                 pair[1][..., :self.Nf], w)
-        return p3.irfft_last_planar(yr, yi, int(self.N[1])).astype(self.float)
-
     def _fwd_local(self, u, dealias):
-        P_ = self.P
-        if P_ > 1 and self._pallas_dist_ok(dealias):
-            return self._fwd_dist_pallas(u, dealias)
-        if P_ == 1 and self._pallas2d_ok(dealias):
-            if dealias == "3/2-rule":
-                x = self._serial_rfft2_pallas(u)            # (M0, Mf)
-                x = trunc_full_axis(x, 0, int(self.N[0]))
-                x = trunc_half_axis(x, 1, self.Nf)
-                x = self._sym_nyq(x)
-                return x * self.complex.type(1.0 / self.padsize ** 2)
-            x = self._serial_rfft2_pallas(u)                # (N0, Nf)
-            if dealias == "2/3-rule":
-                x = jnp.where(self._dealias_local(), x, 0)
-            return x
         # single transpose; "pipelined" chunks the per-device blocks of the
         # split axis (no free third axis in 2D — see collectives block_chunking)
         if dealias == "3/2-rule":
@@ -324,17 +203,6 @@ class R2C(BaseFFT):
         return x.at[:, off].set(sym)
 
     def _bwd_local(self, fu, dealias):
-        if self.P > 1 and self._pallas_dist_ok(dealias):
-            return self._bwd_dist_pallas(fu, dealias)
-        if self.P == 1 and self._pallas2d_ok(dealias):
-            if dealias == "2/3-rule":
-                fu = jnp.where(self._dealias_local(), fu, 0)
-            if dealias == "3/2-rule":
-                x = pad_full_axis(fu, 0, int(self.M[0]))
-                x = pad_half_axis(x, 1, self.Mf)
-                u = self._serial_irfft2_pallas(x, int(self.M[1]))
-                return (u * self.float.type(self.padsize ** 2)).astype(self.float)
-            return self._serial_irfft2_pallas(fu, int(self.N[1])).astype(self.float)
         if dealias == "2/3-rule":
             fu = jnp.where(self._dealias_local(), fu, 0)
         if dealias == "3/2-rule":

@@ -17,8 +17,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
 
@@ -34,12 +32,11 @@ class Boussinesq3D(SpectralSolver):
     """
 
     def __init__(self, FFT, nu: float, kappa: float, dt: float, Ri: float = 1.0,
-                 dealias: Optional[str] = "2/3-rule", integrator: str = "RK4",
-                 spectral_layout: str = "complex"):
+                 dealias: Optional[str] = "2/3-rule", integrator: str = "RK4"):
         self.nu = float(nu)
         self.kappa = float(kappa)
         self.Ri = float(Ri)
-        self._init_solver(FFT, dt, dealias, integrator, spectral_layout)
+        self._init_solver(FFT, dt, dealias, integrator)
 
     # -- initial conditions -------------------------------------------------------
 
@@ -54,11 +51,8 @@ class Boussinesq3D(SpectralSolver):
                 jnp.zeros_like(X[0]),
             ])
             th = theta0 * jnp.sin(X[2])
-            S = jnp.stack([self._fwd_plain(u[i]) for i in range(3)]
-                          + [self._fwd_plain(th)])
-            if self.spectral_layout == "packed":
-                return self.to_packed(S)
-            return S
+            return jnp.stack([self._fwd_plain(u[i]) for i in range(3)]
+                             + [self._fwd_plain(th)])
         return jax.jit(init)(X)
 
     def rest_state(self, theta0: float = 0.1):
@@ -69,10 +63,7 @@ class Boussinesq3D(SpectralSolver):
         def init(X):
             z = jnp.zeros_like(X[0])
             th = theta0 * jnp.sin(X[2])
-            S = jnp.stack([self._fwd_plain(z)] * 3 + [self._fwd_plain(th)])
-            if self.spectral_layout == "packed":
-                return self.to_packed(S)
-            return S
+            return jnp.stack([self._fwd_plain(z)] * 3 + [self._fwd_plain(th)])
         return jax.jit(init)(X)
 
     # -- dynamics ----------------------------------------------------------------
@@ -106,135 +97,12 @@ class Boussinesq3D(SpectralSolver):
             - self.kappa * ksq * T_hat
         return jnp.concatenate([dU, dT[None]])
 
-    def rhs_packed(self, Sr, Si, k0, k1, k2, m0, m1, m2):
-        """Packed-pair Boussinesq RHS (state (4, N0, N1, h) ×2: û + θ̂)."""
-        K0 = k0[:, None, None]
-        K1 = k1[None, :, None]
-        K2v = k2[None, None, :]
-        ksq = K0 * K0 + K1 * K1 + K2v * K2v
-
-        def kx(V):
-            return jnp.stack([K1 * V[2] - K2v * V[1],
-                              K2v * V[0] - K0 * V[2],
-                              K0 * V[1] - K1 * V[0]])
-
-        def kdot(V):
-            return K0 * V[0] + K1 * V[1] + K2v * V[2]
-
-        Ur, Ui = Sr[:3], Si[:3]
-        Tr, Ti = Sr[3], Si[3]
-        U, W = self._bwd_state_curl_pk(Ur, Ui, k0, k1, k2)
-        th = self._bwd_pk((Tr, Ti))
-        if self._nl_any_fused:
-            kargs = (k0, k1, k2, m0, m1, m2)
-            # momentum: project(fft(U×W) + Ri·θ̂ê_z) − νk²û — the buoyancy
-            # rider joins F̂ inside the epilogue kernel, before projection
-            dUr, dUi = self._nl_fwd_epilogue_pk(
-                U, W, Ur, Ui, kargs, "project", self.nu,
-                buoy=(Tr[None], Ti[None], self.Ri))
-            # scalar flux: dθ̂ = −ik·fft(U·θ) − κk²θ̂ (conservative form)
-            dTr, dTi = self._nl_mul_epilogue_pk(
-                U, th[None], Tr[None], Ti[None], kargs, self.kappa)
-            return (jnp.concatenate([dUr, dTr]),
-                    jnp.concatenate([dUi, dTi]))
-        F = jnp.stack([U[1] * W[2] - U[2] * W[1],
-                       U[2] * W[0] - U[0] * W[2],
-                       U[0] * W[1] - U[1] * W[0]])
-        Fr, Fi = self._fwd_pk(F)
-        # buoyancy Ri·θ̂ ê_z joins the force BEFORE projection
-        Fr = Fr.at[2].add(self.Ri * Tr)
-        Fi = Fi.at[2].add(self.Ri * Ti)
-        inv = 1.0 / jnp.where(ksq == 0, 1, ksq)
-        dr = kdot(Fr) * inv
-        di = kdot(Fi) * inv
-        dUr = (Fr - jnp.stack([K0 * dr, K1 * dr, K2v * dr])
-               - self.nu * ksq[None] * Ur)
-        dUi = (Fi - jnp.stack([K0 * di, K1 * di, K2v * di])
-               - self.nu * ksq[None] * Ui)
-        # conservative flux: dθ̂ = −i k·Ĝ − κ k² θ̂, Ĝ = F(uθ)
-        Gr, Gi = self._fwd_pk(U * th[None])
-        dTr = kdot(Gi) - self.kappa * ksq * Tr
-        dTi = -kdot(Gr) - self.kappa * ksq * Ti
-        return (jnp.concatenate([dUr, dTr[None]]),
-                jnp.concatenate([dUi, dTi[None]]))
-
-    # -- streaming-fold RHS (round 5) ------------------------------------------
-
-    def _fold_slices(self):
-        return [slice(0, 3), slice(3, 4)]
-
-    def rhs_packed_fold(self, Sr, Si, kargs, fold, carry):
-        """Boussinesq RHS emitting (momentum, scalar-flux) pieces through
-        the integrator's fold callback — the full (4, …) RHS stack never
-        materialises.  The scalar piece recomputes the physical velocity
-        from the barrier-threaded spectral state (one extra batched inverse
-        per RHS), so no physical stack lives across a fold boundary."""
-        from jax import lax
-        k0, k1, k2, m0, m1, m2 = kargs
-        K0 = k0[:, None, None]
-        K1 = k1[None, :, None]
-        K2v = k2[None, None, :]
-
-        def kdot(V):
-            return K0 * V[0] + K1 * V[1] + K2v * V[2]
-
-        # ---- piece 1: momentum  P[F̂(u×ω) + Ri θ̂ ê_z] − ν k² û ------------
-        # barriers thread the FULL state arrays, slicing fresh per phase
-        # (threaded slices ledger as extra state-width copies — round 5)
-        U, W = self._bwd_state_curl_pk(Sr[:3], Si[:3], k0, k1, k2)
-        if self._nl_any_fused:
-            dUr, dUi = self._nl_fwd_epilogue_pk(
-                U, W, Sr[:3], Si[:3], kargs, "project", self.nu,
-                buoy=(Sr[3][None], Si[3][None], self.Ri))
-        else:
-            Ur, Ui = Sr[:3], Si[:3]
-            Tr, Ti = Sr[3], Si[3]
-            F = jnp.stack([U[1] * W[2] - U[2] * W[1],
-                           U[2] * W[0] - U[0] * W[2],
-                           U[0] * W[1] - U[1] * W[0]])
-            Fr, Fi = self._fwd_pk(F)
-            Fr = Fr.at[2].add(self.Ri * Tr)
-            Fi = Fi.at[2].add(self.Ri * Ti)
-            ksq = K0 * K0 + K1 * K1 + K2v * K2v
-            inv = 1.0 / jnp.where(ksq == 0, 1, ksq)
-            dr = kdot(Fr) * inv
-            di = kdot(Fi) * inv
-            dUr = (Fr - jnp.stack([K0 * dr, K1 * dr, K2v * dr])
-                   - self.nu * ksq[None] * Ur)
-            dUi = (Fi - jnp.stack([K0 * di, K1 * di, K2v * di])
-                   - self.nu * ksq[None] * Ui)
-        carry = fold(slice(0, 3), dUr, dUi, carry)
-        Sr, Si, *carry = lax.optimization_barrier((Sr, Si, *carry))
-        # ---- piece 2: scalar flux  dθ̂ = −i k·F̂(uθ) − κ k² θ̂ --------------
-        U = self._bwd_pk((Sr[:3], Si[:3]))  # plain batched inverse (no CSE
-        th = self._bwd_pk((Sr[3], Si[3]))   # with the fused phase-1 kernel)
-        if self._nl_any_fused:
-            dTr, dTi = self._nl_mul_epilogue_pk(
-                U, th[None], Sr[3][None], Si[3][None], kargs, self.kappa)
-        else:
-            Gr, Gi = self._fwd_pk(U * th[None])
-            ksq = K0 * K0 + K1 * K1 + K2v * K2v
-            dTr = (kdot(Gi) - self.kappa * ksq * Sr[3])[None]
-            dTi = (-kdot(Gr) - self.kappa * ksq * Si[3])[None]
-        return fold(slice(3, 4), dTr, dTi, carry)
-
-    # step_fn/_step_builder/ab2_state/step/run: inherited from SpectralSolver
+    # step_fn/ab2_state/step/run: inherited from SpectralSolver
 
     # -- diagnostics ---------------------------------------------------------------
 
     def energies(self, S_hat):
         """(kinetic, scalar-variance) means: 0.5<|u|²>, 0.5<θ²>."""
-        if self.spectral_layout == "packed":
-            def build():
-                comp = self._parseval_component_energies()
-
-                def ke(Sr, Si):
-                    e = comp(Sr, Si)
-                    return jnp.sum(e[:3]), e[3]
-                return ke
-            eu, et = self._plan("energies_packed", build)(S_hat[0], S_hat[1])
-            return float(eu), float(et)
-
         def build():
             def ke(S_hat):
                 U = jnp.stack([self._bwd(S_hat[i]) for i in range(3)])

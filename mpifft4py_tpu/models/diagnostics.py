@@ -13,15 +13,6 @@ import jax
 import jax.numpy as jnp
 
 
-def _packed_k2(FFT, k2):
-    """The packed pair's per-lane k2 values: the natural 0..h−1 vector
-    permuted when the FFT's packed interface rides the DIF z-stage
-    (FFT.packed_z_perm).  The lane-0 weight rule is order-invariant
-    (perm[0] == 0 — the rider lane stays first)."""
-    perm = getattr(FFT, "packed_z_perm", None)
-    return k2 if perm is None else k2[perm]
-
-
 def _hermitian_weights(FFT):
     """Weights over the last spectral axis.
 
@@ -64,34 +55,6 @@ def energy_spectrum(FFT, U_hat) -> np.ndarray:
     return np.asarray(jax.jit(spec)(U_hat, K))
 
 
-def energy_spectrum_packed(FFT, pair) -> np.ndarray:
-    """E(k) directly on the packed (Sr, Si) float-pair state — no complex
-    unpack (which transiently costs a full complex stack: ~1.6 GB at 512³,
-    a real HBM spike mid-run).  The pair must be purified (2/3-rule solver
-    states always are): column k2=0 weight 1, interior 2, no Nyquist column.
-    Shell ids come from broadcast 1-D integer wavenumbers — nothing is
-    materialised outside the jit."""
-    sr, si = pair
-    N = [int(n) for n in FFT.N]
-    h = N[2] // 2
-    kmax = int(max(N) // 2)
-    ntot = float(np.prod(N))
-    k0 = jnp.asarray(np.fft.fftfreq(N[0], 1.0 / N[0]).astype(np.float32))
-    k1 = jnp.asarray(np.fft.fftfreq(N[1], 1.0 / N[1]).astype(np.float32))
-    k2 = jnp.asarray(_packed_k2(FFT, np.arange(h, dtype=np.float32)))
-    w = jnp.asarray(np.where(np.arange(h) == 0, 1.0, 2.0).astype(np.float32))
-
-    def spec(sr, si, k0, k1, k2, w):
-        ksq = (k0[:, None, None] ** 2 + k1[None, :, None] ** 2
-               + k2[None, None, :] ** 2)
-        shell = jnp.clip(jnp.round(jnp.sqrt(ksq)).astype(jnp.int32), 0, kmax)
-        e = 0.5 * jnp.sum(sr * sr + si * si, axis=0) * w / (ntot * ntot)
-        return jax.ops.segment_sum(e.ravel(), shell.ravel(),
-                                   num_segments=kmax + 1)
-
-    return np.asarray(jax.jit(spec)(sr, si, k0, k1, k2, w))
-
-
 def dissipation(FFT, U_hat, nu: float) -> float:
     """ε = 2ν Σ k² E(k) (physical wavenumbers)."""
     K = FFT.get_scaled_local_wavenumbermesh()
@@ -104,25 +67,3 @@ def dissipation(FFT, U_hat, nu: float) -> float:
         return nu * jnp.sum(k2 * e)
 
     return float(jax.jit(eps)(U_hat, K))
-
-
-def dissipation_packed(FFT, pair, nu: float) -> float:
-    """ε on the packed (Sr, Si) pair — scaled wavenumbers, factored 1-D
-    (no K-mesh or complex materialisation; see energy_spectrum_packed)."""
-    sr, si = pair
-    N = [int(n) for n in FFT.N]
-    h = N[2] // 2
-    ntot = float(np.prod(N))
-    s = 2 * np.pi / np.asarray(FFT.L)
-    k0 = jnp.asarray((np.fft.fftfreq(N[0], 1.0 / N[0]) * s[0]).astype(np.float32))
-    k1 = jnp.asarray((np.fft.fftfreq(N[1], 1.0 / N[1]) * s[1]).astype(np.float32))
-    k2 = jnp.asarray(_packed_k2(FFT, (np.arange(h) * s[2]).astype(np.float32)))
-    w = jnp.asarray(np.where(np.arange(h) == 0, 1.0, 2.0).astype(np.float32))
-
-    def eps(sr, si, k0, k1, k2, w):
-        ksq = (k0[:, None, None] ** 2 + k1[None, :, None] ** 2
-               + k2[None, None, :] ** 2)
-        e = jnp.sum(sr * sr + si * si, axis=0) * w / (ntot * ntot)
-        return nu * jnp.sum(ksq * e)
-
-    return float(jax.jit(eps)(sr, si, k0, k1, k2, w))

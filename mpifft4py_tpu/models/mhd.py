@@ -1,7 +1,7 @@
 """Pseudo-spectral incompressible 3D magnetohydrodynamics — second consumer.
 
 spectralDNS (the reference library's consumer) ships an MHD solver on the same
-transform engine; this is its TPU-native analog over slab/pencil ``R2C``.
+transform engine; this is its analog over slab/pencil ``R2C``.
 Standard (u, b) rotational form in Alfvén units:
 
     ∂û/∂t = P[ F(u×ω + j×b) ] − ν k² û          ω = ∇×u,  j = ∇×b
@@ -22,8 +22,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
 
@@ -41,11 +39,10 @@ class MHD3D(SpectralSolver):
     """
 
     def __init__(self, FFT, nu: float, eta: float, dt: float,
-                 dealias: Optional[str] = "2/3-rule", integrator: str = "RK4",
-                 spectral_layout: str = "complex"):
+                 dealias: Optional[str] = "2/3-rule", integrator: str = "RK4"):
         self.nu = float(nu)
         self.eta = float(eta)
-        self._init_solver(FFT, dt, dealias, integrator, spectral_layout)
+        self._init_solver(FFT, dt, dealias, integrator)
 
     # -- initial conditions -----------------------------------------------------
 
@@ -65,11 +62,8 @@ class MHD3D(SpectralSolver):
                 jnp.sin(X[0]) * jnp.cos(X[1]) * jnp.sin(X[2]),
                 -2.0 * jnp.sin(X[0]) * jnp.sin(X[1]) * jnp.cos(X[2]),
             ])
-            fub = jnp.stack([self._fwd_plain(u[i]) for i in range(3)]
-                            + [self._fwd_plain(b[i]) for i in range(3)])
-            if self.spectral_layout == "packed":
-                return self.to_packed(fub)
-            return fub
+            return jnp.stack([self._fwd_plain(u[i]) for i in range(3)]
+                             + [self._fwd_plain(b[i]) for i in range(3)])
         return jax.jit(init)(X)
 
     # -- dynamics ---------------------------------------------------------------
@@ -110,204 +104,12 @@ class MHD3D(SpectralSolver):
         dB = curl_hat(Fb_hat) - self.eta * ksq[None] * B_hat
         return jnp.concatenate([dU, dB])
 
-    def rhs_packed(self, UBr, UBi, k0, k1, k2, m0, m1, m2):
-        """Packed-pair MHD right-hand side (state (6, N0, N1, h) ×2): the
-        NS packed fast path extended with the Lorentz force and the
-        solenoidal induction curl (VERDICT r2 item-1 machinery reused)."""
-        K0 = k0[:, None, None]
-        K1 = k1[None, :, None]
-        K2v = k2[None, None, :]
-
-        def kx(V):  # K × V on a 3-stack
-            return jnp.stack([K1 * V[2] - K2v * V[1],
-                              K2v * V[0] - K0 * V[2],
-                              K0 * V[1] - K1 * V[0]])
-
-        def cross(A, B):
-            return jnp.stack([A[1] * B[2] - A[2] * B[1],
-                              A[2] * B[0] - A[0] * B[2],
-                              A[0] * B[1] - A[1] * B[0]])
-
-        from ..ops import pallas_fft3d as p3
-        Ur, Ui = UBr[:3], UBi[:3]
-        Br, Bi = UBr[3:], UBi[3:]
-        if (getattr(self, "_nl_fused", False)
-                and not p3.cross2_direct_ok(int(self.FFT.N[1]),
-                                            int(self.FFT.N[2]))
-                and p3.cross_zy_ok(int(self.FFT.N[1]), int(self.FFT.N[2]))):
-            # 512-class serial: cross2 splits into two passes — sequence the
-            # four physical stacks so at most three are co-live (the naive
-            # RHS peaked 21.3 GB > 15.75 at 512³, BENCH.md round 3)
-            return self._rhs_packed_seq(UBr, UBi, k0, k1, k2, m0, m1, m2)
-        U, W = self._bwd_state_curl_pk(Ur, Ui, k0, k1, k2)  # ω = iK×û
-        B, J = self._bwd_state_curl_pk(Br, Bi, k0, k1, k2)  # j = iK×b̂
-        if self._nl_any_fused:
-            kargs = (k0, k1, k2, m0, m1, m2)
-            # momentum: project(fft(U×W + J×B)) − νk²û; the two crosses sum
-            # inside ONE z/y kernel (four physical stacks in, one pair out)
-            dUr, dUi = self._nl_fwd_epilogue_pk(
-                U, W, Ur, Ui, kargs, "project", self.nu, C=J, D=B)
-            # induction: iK×fft(U×B) − ηk²b̂ — exact-solenoidal by form
-            dBr, dBi = self._nl_fwd_epilogue_pk(
-                U, B, Br, Bi, kargs, "curl", self.eta)
-            return (jnp.concatenate([dUr, dBr]),
-                    jnp.concatenate([dUi, dBi]))
-        Fu = cross(U, W) + cross(J, B)
-        Fb = cross(U, B)
-        Fur, Fui = self._fwd_pk(Fu)              # purify + mask inside
-        Fbr, Fbi = self._fwd_pk(Fb)
-        ksq = K0 * K0 + K1 * K1 + K2v * K2v
-        inv = 1.0 / jnp.where(ksq == 0, 1, ksq)
-        dr = (K0 * Fur[0] + K1 * Fur[1] + K2v * Fur[2]) * inv
-        di = (K0 * Fui[0] + K1 * Fui[1] + K2v * Fui[2]) * inv
-        dUr = (Fur - jnp.stack([K0 * dr, K1 * dr, K2v * dr])
-               - self.nu * ksq[None] * Ur)
-        dUi = (Fui - jnp.stack([K0 * di, K1 * di, K2v * di])
-               - self.nu * ksq[None] * Ui)
-        # induction: iK×F̂b → (re, im) = (−K×Im F̂b, K×Re F̂b)
-        dBr = -kx(Fbi) - self.eta * ksq[None] * Br
-        dBi = kx(Fbr) - self.eta * ksq[None] * Bi
-        return (jnp.concatenate([dUr, dBr]), jnp.concatenate([dUi, dBi]))
-
-    def _rhs_packed_seq(self, UBr, UBi, k0, k1, k2, m0, m1, m2):
-        """Peak-HBM-sequenced serial fused MHD RHS for grids where the
-        12-field cross2 kernel finds no VMEM tile (512-class): the U×ω pass
-        COMPLETES (optimization_barrier) before b/j materialise, so at most
-        three physical 3-stacks are co-live instead of four, and ω/j die as
-        soon as their cross consumes them.  Identical arithmetic to the
-        fused branch of rhs_packed (the z/y forward is linear:
-        Ẑ(U×ω) + Ẑ(j×b) = Ẑ(U×ω + j×b))."""
-        from jax import lax
-
-        from ..ops import pallas_fft3d as p3
-        Ur, Ui = UBr[:3], UBi[:3]
-        Br, Bi = UBr[3:], UBi[3:]
-        kargs = (k0, k1, k2, m0, m1, m2)
-        # 2N-storage integrators carry an extra (6,…) accumulator pair
-        # beside the state; at 512³ that pushed LSRK54 to 17.26 GiB
-        # (14.25 real + 3.01 fragmentation, AOT ledger).  Trading the held
-        # physical U stack (1.5 GiB across the whole b/j + momentum window)
-        # for one extra batched inverse per RHS is what makes LSRK54 fit.
-        recompute_u = self.integrator in ("LSRK54", "AB2")
-        U, W = self._bwd_state_curl_pk(Ur, Ui, k0, k1, k2)
-        P1r, P1i = p3.cross_rfft_zy_packed(U, W, dif=True)   # Ẑ(u×ω); ω dies
-        P1r, P1i, Brs, Bis, Urs, Uis = lax.optimization_barrier(
-            (P1r, P1i, Br, Bi, Ur, Ui))                      # (recompute: U
-        B, J = self._bwd_state_curl_pk(Brs, Bis, k0, k1, k2)  # dies here too)
-        P2r, P2i = p3.cross_rfft_zy_packed(J, B, dif=True)   # Ẑ(j×b); j dies
-        dUr, dUi = p3.fft_x_epilogue_packed(P1r + P2r, P1i + P2i, Ur, Ui,
-                                            *kargs, "project", self.nu)
-        dUr, dUi = p3.purify_plane0_dus(dUr, dUi)
-        if recompute_u:
-            # rebuild the physical velocity for the induction cross from the
-            # barrier-threaded spectral state (a plain batched inverse — a
-            # DIFFERENT program from the fused state+curl kernel, so no CSE
-            # resurrects the original buffer)
-            dUr, dUi, Urs, Uis = lax.optimization_barrier(
-                (dUr, dUi, Urs, Uis))
-            U = self._bwd_pk((Urs, Uis))
-        # induction last: only U, B still live among the physical stacks
-        Fbr, Fbi = p3.cross_rfft_zy_packed(U, B, dif=True)
-        dBr, dBi = p3.fft_x_epilogue_packed(Fbr, Fbi, Br, Bi, *kargs,
-                                            "curl", self.eta)
-        dBr, dBi = p3.purify_plane0_dus(dBr, dBi)
-        return (jnp.concatenate([dUr, dBr]), jnp.concatenate([dUi, dBi]))
-
-    # -- streaming-fold RHS (round 5) ------------------------------------------
-
-    def _fold_slices(self):
-        return [slice(0, 3), slice(3, 6)]
-
-    def rhs_packed_fold(self, UBr, UBi, kargs, fold, carry):
-        """Sequenced MHD RHS emitting (momentum, induction) pieces through
-        the integrator's fold callback — the full (6, …) RHS stack never
-        materialises (the round-4 LSRK54 miss was 17.4% allocator
-        fragmentation driven by the co-held r + dU 1.5 GiB stacks;
-        BENCH.md round 4).  Phase discipline matches ``_rhs_packed_seq``:
-        the u×ω pass completes before b/j materialise, and the induction
-        piece recomputes the physical u/b stacks from the barrier-threaded
-        spectral state (one extra batched inverse per RHS — the price of
-        never holding a physical stack across a fold boundary)."""
-        from jax import lax
-
-        from ..ops import pallas_fft3d as p3
-        k0, k1, k2, m0, m1, m2 = kargs
-        K0 = k0[:, None, None]
-        K1 = k1[None, :, None]
-        K2v = k2[None, None, :]
-
-        def cross(A, B):
-            return jnp.stack([A[1] * B[2] - A[2] * B[1],
-                              A[2] * B[0] - A[0] * B[2],
-                              A[0] * B[1] - A[1] * B[0]])
-
-        def kx(V):
-            return jnp.stack([K1 * V[2] - K2v * V[1],
-                              K2v * V[0] - K0 * V[2],
-                              K0 * V[1] - K1 * V[0]])
-
-        split_512 = (getattr(self, "_nl_fused", False)
-                     and not p3.cross2_direct_ok(int(self.FFT.N[1]),
-                                                 int(self.FFT.N[2]))
-                     and p3.cross_zy_ok(int(self.FFT.N[1]),
-                                        int(self.FFT.N[2])))
-        # ---- piece 1: momentum  d(û) = P[F̂(u×ω + j×b)] − ν k² û ----------
-        # barriers thread the FULL state arrays, slicing fresh per phase —
-        # threading the four slices ledgered as twelve extra 768 MB slice
-        # copies at 512³ (the round-5 fold dump)
-        U, W = self._bwd_state_curl_pk(UBr[:3], UBi[:3], k0, k1, k2)
-        if split_512:
-            P1r, P1i = p3.cross_rfft_zy_packed(U, W, dif=True)  # ω, U die
-            P1r, P1i, UBr, UBi, *carry = lax.optimization_barrier(
-                (P1r, P1i, UBr, UBi, *carry))
-            B, J = self._bwd_state_curl_pk(UBr[3:], UBi[3:], k0, k1, k2)
-            P2r, P2i = p3.cross_rfft_zy_packed(J, B, dif=True)  # j, b die
-            dUr, dUi = p3.fft_x_epilogue_packed(P1r + P2r, P1i + P2i,
-                                                UBr[:3], UBi[:3], *kargs,
-                                                "project", self.nu)
-            dUr, dUi = p3.purify_plane0_dus(dUr, dUi)
-        else:
-            B, J = self._bwd_state_curl_pk(UBr[3:], UBi[3:], k0, k1, k2)
-            if self._nl_any_fused:
-                dUr, dUi = self._nl_fwd_epilogue_pk(
-                    U, W, UBr[:3], UBi[:3], kargs, "project", self.nu,
-                    C=J, D=B)
-            else:
-                Ur, Ui = UBr[:3], UBi[:3]
-                Fur, Fui = self._fwd_pk(cross(U, W) + cross(J, B))
-                ksq = K0 * K0 + K1 * K1 + K2v * K2v
-                inv = 1.0 / jnp.where(ksq == 0, 1, ksq)
-                dr = (K0 * Fur[0] + K1 * Fur[1] + K2v * Fur[2]) * inv
-                di = (K0 * Fui[0] + K1 * Fui[1] + K2v * Fui[2]) * inv
-                dUr = (Fur - jnp.stack([K0 * dr, K1 * dr, K2v * dr])
-                       - self.nu * ksq[None] * Ur)
-                dUi = (Fui - jnp.stack([K0 * di, K1 * di, K2v * di])
-                       - self.nu * ksq[None] * Ui)
-        carry = fold(slice(0, 3), dUr, dUi, carry)
-        UBr, UBi, *carry = lax.optimization_barrier((UBr, UBi, *carry))
-        # ---- piece 2: induction  d(b̂) = iK×F̂(u×b) − η k² b̂ ---------------
-        # plain batched inverses (a DIFFERENT program from the fused
-        # state+curl kernel, so no CSE resurrects the phase-1 buffers)
-        U = self._bwd_pk((UBr[:3], UBi[:3]))
-        B = self._bwd_pk((UBr[3:], UBi[3:]))
-        if self._nl_any_fused:
-            dBr, dBi = self._nl_fwd_epilogue_pk(
-                U, B, UBr[3:], UBi[3:], kargs, "curl", self.eta)
-        else:
-            Fbr, Fbi = self._fwd_pk(cross(U, B))
-            ksq = K0 * K0 + K1 * K1 + K2v * K2v
-            dBr = -kx(Fbi) - self.eta * ksq[None] * UBr[3:]
-            dBi = kx(Fbr) - self.eta * ksq[None] * UBi[3:]
-        return fold(slice(3, 6), dBr, dBi, carry)
-
-    # step_fn/_step_builder/ab2_state/step/run: inherited from SpectralSolver
+    # step_fn/ab2_state/step/run: inherited from SpectralSolver
 
     # -- diagnostics --------------------------------------------------------------
 
     def energies(self, UB_hat):
         """(kinetic, magnetic) mean energies 0.5<|u|²>, 0.5<|b|²>."""
-        if self.spectral_layout == "packed":
-            return self.energies_packed(UB_hat)
 
         def build():
             def ke(UB_hat):
@@ -320,38 +122,18 @@ class MHD3D(SpectralSolver):
         eu, eb = self._plan("energies", build)(UB_hat)
         return float(eu), float(eb)
 
-    def energies_packed(self, UB):
-        """(kinetic, magnetic) Parseval energies of the packed state."""
-        def build():
-            comp = self._parseval_component_energies()
-
-            def ke(UBr, UBi):
-                e = comp(UBr, UBi)
-                return jnp.sum(e[:3]), jnp.sum(e[3:])
-            return ke
-        eu, eb = self._plan("energies_packed", build)(UB[0], UB[1])
-        return float(eu), float(eb)
-
     def divergences(self, UB_hat):
         """(max |∇·u|, max |∇·b|) in spectral space — both must be ~0."""
         def build():
-            packed = self.spectral_layout == "packed"
-
-            def dv(UB_hat, k0, k1, k2, *rest):
+            def dv(UB_hat, k0, k1, k2):
                 K0 = k0[:, None, None]
                 K1 = k1[None, :, None]
                 K2v = k2[None, None, :]
 
                 def div3(V):
                     return K0 * V[0] + K1 * V[1] + K2v * V[2]
-                if packed:
-                    UBr, UBi = UB_hat
-                    du = jnp.sqrt(div3(UBr[:3]) ** 2 + div3(UBi[:3]) ** 2)
-                    db = jnp.sqrt(div3(UBr[3:]) ** 2 + div3(UBi[3:]) ** 2)
-                else:
-                    du = jnp.abs(div3(UB_hat[:3]))
-                    db = jnp.abs(div3(UB_hat[3:]))
-                return du.max(), db.max()
+                return (jnp.abs(div3(UB_hat[:3])).max(),
+                        jnp.abs(div3(UB_hat[3:])).max())
             return dv
         a, b = self._plan("divergences", build)(UB_hat, *self._step_args())
         return float(a), float(b)

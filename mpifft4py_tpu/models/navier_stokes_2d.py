@@ -6,18 +6,8 @@ driver eval config 2's decomposition) in a real pseudo-spectral time loop.
 Vorticity formulation:  ∂ω/∂t + u·∇ω = ν ∇²ω,  u = ∇⊥ψ,  ∇²ψ = −ω.
 Spectral: ψ̂ = ω̂/|k|²;  û = (i k_y ψ̂, −i k_x ψ̂);  nonlinear term dealiased.
 
-Two spectral layouts (mirroring the 3D family):
-
-* ``"complex"`` (default) — ω̂ as a standard complex (N0, Nf) array through
-  ``FFT.forward_fn``/``backward_fn``; works for every decomposition/P.
-* ``"packed"`` — ω̂ as the packed-Hermitian planar float32 pair (N0, N1/2):
-  under 2/3-rule dealiasing the lane-0 Nyquist rider is identically zero, so
-  no pack/unpack/complex materialisation surrounds any of the 5 transforms
-  per RHS and all spectral algebra runs on float pairs (the 2D analog of the
-  3D ``spectral_layout="packed"`` fast path).  Where the DIF z-stage is gated
-  (N1 ∈ 512/1024-class — ``pallas_zdif.zdif_active``) the k1 lanes live in
-  ``zdif_perm`` order and the factored wavenumber vector is permuted to
-  match (docs/API.md "packed z-lane layout").  Serial (P == 1) only.
+The state ω̂ is a standard complex (N0, Nfp) array carried through
+``FFT.forward_fn``/``backward_fn``; it works for every P.
 """
 
 from __future__ import annotations
@@ -33,7 +23,7 @@ from jax import lax
 
 class NavierStokes2D:
     def __init__(self, FFT, nu: float, dt: float, dealias: Optional[str] = "2/3-rule",
-                 integrator: str = "RK4", spectral_layout: str = "complex"):
+                 integrator: str = "RK4"):
         from .navier_stokes import INTEGRATORS
         self.FFT = FFT
         self.nu = float(nu)
@@ -43,22 +33,6 @@ class NavierStokes2D:
             raise ValueError(f"integrator must be one of {INTEGRATORS}, "
                              f"got {integrator!r}")
         self.integrator = integrator
-        if spectral_layout not in ("complex", "packed"):
-            raise ValueError(f"spectral_layout must be 'complex' or 'packed', "
-                             f"got {spectral_layout!r}")
-        if spectral_layout == "packed":
-            from ..ops import pallas_fft3d as p3
-            n0, n1 = int(FFT.N[0]), int(FFT.N[1])
-            r0, m0 = p3._factor(n0)
-            if not (getattr(FFT, "P", 1) == 1 and dealias == "2/3-rule"
-                    and (n1 // 2) % 128 == 0 and r0 <= 8 and m0 >= 8):
-                raise ValueError(
-                    "packed 2D layout needs P == 1, dealias='2/3-rule', "
-                    "(N1/2) % 128 == 0 and N0 = r·m with r <= 8, m <= 128 "
-                    "(the planar-stage gate: N0 <= 1024 for powers of two — "
-                    "2048-class needs a two-pass x-stage, measured 24.5-40 MB "
-                    "scoped VMEM single-pass, BENCH.md round 5)")
-        self.spectral_layout = spectral_layout
         K = FFT.get_scaled_local_wavenumbermesh()      # (2, N0, Nfp)
         K2 = jnp.sum(K * K, axis=0)
         self.K = K
@@ -70,116 +44,12 @@ class NavierStokes2D:
         self._step = None
         self._run = None
         self._ens = None
-        if spectral_layout == "packed":
-            self._init_packed()
-
-    # -- packed layout ---------------------------------------------------------
-
-    def _init_packed(self):
-        """Factored scaled wavenumber VECTORS for the packed pair layout:
-        k0 signed (N0,), k1 = lane wavenumbers (h,) — permuted to zdif order
-        where the DIF z-stage is gated (lane l holds k = zdif_perm[l])."""
-        from ..ops import pallas_zdif as z
-        from ..utils.spectral import dealias_cutoffs
-        N0, N1 = (int(n) for n in self.FFT.N)
-        h = N1 // 2
-        s = (2 * np.pi / np.asarray(self.FFT.L)).astype(np.float32)
-        k0 = np.fft.fftfreq(N0, 1.0 / N0).astype(np.float32) * s[0]
-        k1 = np.arange(h, dtype=np.float32)
-        self._dif = z.zdif_active(N1)
-        if self._dif:
-            k1 = k1[z.zdif_perm(N1)]
-        k1 = k1 * s[1]
-        c = dealias_cutoffs(self.FFT.N)
-        self._cut = (float(c[0]) * float(s[0]), float(c[1]) * float(s[1]))
-        builder = lambda: (jnp.asarray(k0), jnp.asarray(k1))
-        self.k0, self.k1 = jax.jit(builder)()
-
-    def _mask_pk(self, k0, k1):
-        return ((jnp.abs(k0)[:, None] < self._cut[0])
-                & (k1[None, :] < self._cut[1]))
-
-    def _purify2d(self, yr, yi):
-        """Drop the Nyquist rider from packed lane 0 (2D: flip-conj along the
-        single transformed full axis k0)."""
-        from ..ops import pallas_fft3d as p3
-        qr, qi = yr[..., 0], yi[..., 0]
-        cr, ci = p3._flipconj(qr, qi, (qr.ndim - 1,))
-        p0r = 0.5 * (qr + cr)
-        p0i = 0.5 * (qi + ci)
-        return (jnp.concatenate([p0r[..., None], yr[..., 1:]], axis=-1),
-                jnp.concatenate([p0i[..., None], yi[..., 1:]], axis=-1))
-
-    def _fwd_pk(self, w, k0, k1):
-        """real (…, N0, N1) -> masked, purified packed pair (…, N0, h)."""
-        from ..ops import pallas_fft3d as p3
-        yr, yi = p3.rfft_last_packed(w, dif=True)
-        yr, yi = p3.fft_axis_planar(yr, yi, axis=w.ndim - 2)
-        yr, yi = self._purify2d(yr, yi)
-        m = self._mask_pk(k0, k1)
-        return jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-
-    def _bwd_pk(self, pr, pi):
-        from ..ops import pallas_fft3d as p3
-        n1 = int(self.FFT.N[1])
-        yr, yi = p3.fft_axis_planar(pr, pi, axis=pr.ndim - 2, inverse=True)
-        return p3.irfft_last_packed(yr, yi, n1, dif=True)
-
-    def pack_state(self, w_hat):
-        """standard complex (N0, Nf) -> packed pair (N0, h) in the layout's
-        lane order (Nyquist column folds into the lane-0 rider)."""
-        from ..ops import pallas_fft3d as p3
-        from ..ops import pallas_zdif as z
-        nf = w_hat.shape[-1]
-        qr, qi = p3.pack_plane0(w_hat[..., 0], w_hat[..., nf - 1])
-        br = jnp.concatenate([qr[..., None],
-                              jnp.real(w_hat[..., 1:nf - 1]).astype(jnp.float32)],
-                             axis=-1)
-        bi = jnp.concatenate([qi[..., None],
-                              jnp.imag(w_hat[..., 1:nf - 1]).astype(jnp.float32)],
-                             axis=-1)
-        if self._dif:
-            p = jnp.asarray(z.zdif_perm(int(self.FFT.N[1])))
-            br, bi = br[..., p], bi[..., p]
-        return br, bi
-
-    def unpack_state(self, Wp):
-        """packed pair -> standard complex (N0, Nf) (diagnostic boundary)."""
-        from ..ops import pallas_fft3d as p3
-        from ..ops import pallas_zdif as z
-        br, bi = Wp
-        if self._dif:
-            ip = jnp.asarray(z.zdif_iperm(int(self.FFT.N[1])))
-            br, bi = br[..., ip], bi[..., ip]
-        p0, pny = p3.unpack_plane0(br, bi, axes=(br.ndim - 2,))
-        body = lax.complex(br, bi)[..., 1:]
-        return jnp.concatenate([p0[..., None], body, pny[..., None]], axis=-1)
-
-    def rhs_packed(self, Wp, k0, k1):
-        """RHS on the packed pair: 4 inverse + 1 forward transform, all
-        spectral algebra on float pairs (i·k multiplies are planar swaps).
-        The four inverses ride ONE batched kernel chain: 2D fields are tiny
-        (4 MB at 1024²), so the step is kernel-LAUNCH-bound, the opposite of
-        the 3D measurement (BENCH.md: batching was slower at 256³) — the
-        (4, N0, h) stack quarters the launch count of the inverse leg."""
-        wr, wi = Wp
-        K0, K1 = k0[:, None], k1[None, :]
-        K2 = K0 * K0 + K1 * K1
-        K2i = jnp.where(K2 == 0, 0.0, 1.0 / jnp.where(K2 == 0, 1.0, K2))
-        pr, pi = wr * K2i, wi * K2i
-        # rows: u = ifft(i k1 ψ̂), v = ifft(−i k0 ψ̂), ω_x = ifft(i k0 ω̂),
-        #       ω_y = ifft(i k1 ω̂)
-        gr = jnp.stack([-K1 * pi, K0 * pi, -K0 * wi, -K1 * wi])
-        gi = jnp.stack([K1 * pr, -K0 * pr, K0 * wr, K1 * wr])
-        G = self._bwd_pk(gr, gi)                   # (4, N0, N1) physical
-        ar, ai = self._fwd_pk(G[0] * G[2] + G[1] * G[3], k0, k1)
-        return (-ar - self.nu * K2 * wr, -ai - self.nu * K2 * wi)
 
     # -- shared machinery --------------------------------------------------------
 
     def vortex_pair(self):
-        """Two counter-rotating Gaussian vortices (classic test IC); spectral
-        ω̂ in the solver's layout."""
+        """Two counter-rotating Gaussian vortices (classic test IC); spectral,
+        dealiased ω̂."""
         X = self.FFT.get_local_mesh()
 
         def physical(X):
@@ -188,10 +58,6 @@ class NavierStokes2D:
             return (jnp.exp(-((x - 0.4 * L) ** 2 + (y - 0.5 * L) ** 2) / 0.05)
                     - jnp.exp(-((x - 0.6 * L) ** 2 + (y - 0.5 * L) ** 2) / 0.05))
 
-        if self.spectral_layout == "packed":
-            return jax.jit(lambda X, a, b: self._fwd_pk(physical(X), a, b))(
-                X, self.k0, self.k1)
-        # dealiased IC (same envelope as the packed layout's state)
         return jax.jit(lambda X: self._fwd(physical(X)))(X)
 
     def rhs(self, w_hat, K, K2, K2i):
@@ -208,30 +74,19 @@ class NavierStokes2D:
         # (see SpectralSolver.step_fn); integrator machinery shared with 3D
         from .navier_stokes import SpectralSolver
 
-        if self.spectral_layout == "packed":
-            def step_pk(Wp, k0, k1):
-                rhs1 = lambda V: self.rhs_packed(V, k0, k1)
-                return SpectralSolver._advance(self, rhs1, Wp)
-            return step_pk
-
         def step(w_hat, K, K2, K2i):
             rhs1 = lambda V: self.rhs(V, K, K2, K2i)
             return SpectralSolver._advance(self, rhs1, w_hat)
         return step
 
     def _step_args(self):
-        if self.spectral_layout == "packed":
-            return (self.k0, self.k1)
         return (self.K, self.K2, self.K2_inv)
 
     def ab2_state(self, w_hat):
         """(w_hat, f_prev) carry for integrator='AB2' (first step = Euler seed)."""
         if self.integrator != "AB2":
             raise ValueError("ab2_state is only meaningful with integrator='AB2'")
-        if self.spectral_layout == "packed":
-            f = jax.jit(self.rhs_packed)(w_hat, self.k0, self.k1)
-        else:
-            f = jax.jit(self.rhs)(w_hat, self.K, self.K2, self.K2_inv)
+        f = jax.jit(self.rhs)(w_hat, self.K, self.K2, self.K2_inv)
         return (w_hat, f)
 
     def step(self, w_hat):
@@ -240,7 +95,7 @@ class NavierStokes2D:
         return self._step(w_hat, *self._step_args())
 
     def run(self, state, nsteps: int):
-        """``nsteps`` steps as ONE jitted donated-carry scan (the relay-safe
+        """``nsteps`` steps as ONE jitted donated-carry scan (the
         benchmarking/production entry — mirrors SpectralSolver.run)."""
         if self._run is None:
             stepf = self.step_fn()
@@ -257,12 +112,10 @@ class NavierStokes2D:
         from .navier_stokes import SpectralSolver
 
         if self._ens is None:
-            # cached plan: a fresh jax.jit(closure) per call RETRACES the
-            # pallas chain every time — measured as a phantom 450 ms/step
-            # when a benchmark syncs on enstrophy (round 5)
+            # cached plan: a fresh jax.jit(closure) per call would retrace
+            # and recompile the inverse transform on every call
             def ens(W):
-                w = (self._bwd_pk(*W) if self.spectral_layout == "packed"
-                     else self._bwd(W))
+                w = self._bwd(W)
                 return 0.5 * SpectralSolver.staged_mean(w * w)
             self._ens = jax.jit(ens)
         return float(self._ens(w_hat))

@@ -1,1 +1,1 @@
-"""Compute kernels: MXU matmul-FFT, double-word (emulated fp64) arithmetic."""
+"""Compute kernels: einsum four-step FFT, double-word (emulated fp64) arithmetic."""

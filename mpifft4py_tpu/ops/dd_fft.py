@@ -1,7 +1,8 @@
 """Mixed-radix FFTs in double-word (emulated fp64) arithmetic.
 
-The "double" precision tier on TPU (policy path "doubleword", SURVEY.md §7
-step 1 / BASELINE.md <1e-12 target).  Recursive Cooley–Tukey over
+The emulated "double" precision tier (policy path "doubleword", selected by
+``fp64_mode="doubleword"`` or when x64 is off; SURVEY.md §7 step 1 /
+BASELINE.md <1e-12 target).  Recursive Cooley–Tukey over
 ``DDComplex`` arrays with radix-2 and radix-3 butterflies (covering 2^k and the
 3/2-rule padded sizes 3·2^k) and a dense O(n²) fallback for other factors.
 Twiddles are computed in float64 on host and split exactly into (hi, lo)
@@ -9,8 +10,8 @@ float32 pairs, so twiddle error — the usual fp-emulation accuracy killer — i
 at the 2^-48 level.
 
 All functions are trace-time recursive (static shapes): the unrolled butterfly
-graph is what XLA sees, and it fuses stages on the VPU.  ~20× the flops of the
-native-f32 path — the deliberate price of 48-bit mantissas on fp32 hardware.
+graph is what XLA sees, and it fuses the elementwise stages.  ~20× the flops
+of the native-f32 path — the price of 48-bit mantissas from float32 arithmetic.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
-"""Double-word (two-float32) arithmetic — emulated fp64 for TPU.
+"""Double-word (two-float32) arithmetic — emulated fp64.
 
-TPU has no native fp64 ALU; the reference's "double" precision (FFTW fp64 —
-SURVEY.md §5 config system, BASELINE.md accuracy target <1e-12) is provided on
-TPU by double-word arithmetic: every value is an unevaluated sum hi + lo of two
+The reference's "double" precision (FFTW fp64 — SURVEY.md §5 config system,
+BASELINE.md accuracy target <1e-12) runs natively wherever x64 is enabled;
+this module is the alternative selected by ``fp64_mode="doubleword"``:
+double-word arithmetic, where every value is an unevaluated sum hi + lo of two
 float32 with |lo| <= ulp(hi)/2, giving ~48 mantissa bits (unit roundoff ≈ 2^-48).
 
 Algorithms are the classic error-free transforms (Dekker 1971, Knuth, and the
-Bailey/Hida QD library's "ieee" variants), FMA-free so they lower to plain VPU
-adds/muls:
+Bailey/Hida QD library's "ieee" variants), FMA-free so they lower to plain
+adds/muls (a compiler that contracts them into FMAs breaks the error-free
+property — which is why the policy never picks this path by itself):
 
 * ``two_sum``       — exact a+b = s + e (6 flops)
 * ``quick_two_sum`` — exact when |a| >= |b| (3 flops)
@@ -83,7 +85,7 @@ def two_prod(a, b):
 
 
 class DD(NamedTuple):
-    """Double-word real array: value = hi + lo (both float32 on TPU)."""
+    """Double-word real array: value = hi + lo (both float32)."""
 
     hi: jnp.ndarray
     lo: jnp.ndarray

@@ -1,28 +1,25 @@
-"""MXU-targeted matmul FFTs (the FFTW-analog fast tier).
+"""Einsum four-step FFT tier (off by default; XLA's FFT is the default).
 
 Reference analog: mpiFFT4py's serial backend is FFTW via pyfftw (SURVEY.md §2.1
-#7).  A TPU has no scalar FFT butterflies worth writing — its FLOPs live in the
-128×128 MXU — so the idiomatic fast path is the **four-step (Bailey) FFT**:
-factor n = n1·n2 and express the length-n DFT as
+#7); here the default is ``jnp.fft`` (cuFFT on GPUs).  This module adds the
+**four-step (Bailey) FFT** as an alternative: factor n = n1·n2 and express
+the length-n DFT as
 
     X[k1 + n1·k2] = Σ_{j2} W2[k2,j2] · ( T[k1,j2] · Σ_{j1} W1[k1,j1] x[j1·n2+j2] )
 
 i.e. two *dense batched matmuls* against small DFT matrices with an elementwise
-twiddle in between.  Per element this is O(n1+n2) flops instead of O(log n) —
-a deliberate trade: MXU matmul throughput is ~2 orders of magnitude above the
-VPU, and XLA fuses the twiddle/reshape steps.  Dense DFT matrices also give
-**every radix for free** — the 3/2-rule padded sizes (96, 384, 1536 = 3·2^k)
-need no special-casing.
+twiddle in between — O(n1+n2) flops per element instead of O(log n).  Dense
+DFT matrices give every radix for free (the 3/2-rule padded sizes 96, 384,
+1536 = 3·2^k need no special-casing).
 
-Accuracy: contractions run at ``lax.Precision.HIGHEST`` (6-pass bf16 emulation
-on TPU ⇒ near-f32 matmul accuracy); twiddles are computed in float64 on host
-and rounded once.  r2c/c2r use the Hermitian pack/unpack trick (length-n real
-transform via one length-n/2 complex transform + elementwise untangle).
+Accuracy: contractions run at ``lax.Precision.HIGHEST`` (full float32 — no
+TF32 or bf16 passes); twiddles are computed in float64 on host and rounded
+once.  r2c/c2r use the Hermitian pack/unpack trick (length-n real transform
+via one length-n/2 complex transform + elementwise untangle).
 
 Dispatch: ``fft/ifft/rfft/irfft`` mirror ``jnp.fft`` signatures and choose
-matmul vs XLA FFT per (size, backend) via ``use_matmul_fft`` — the same role
-FFTW's planner played for the reference.  Override with
-``MPIFFT4PY_TPU_FFT_BACKEND={matmul,xla}``.
+matmul vs XLA FFT via ``use_matmul_fft`` — the role FFTW's planner played for
+the reference.  ``MPIFFT4PY_TPU_FFT_BACKEND={matmul,xla}`` selects the tier.
 """
 
 from __future__ import annotations
@@ -92,10 +89,10 @@ def _fft_axis(x: jnp.ndarray, axis: int, sign: int) -> jnp.ndarray:
     W2 = jnp.asarray(_dft_mat(n2, sign, str(cdt)))
     T = jnp.asarray(_twiddle(n1, n2, sign, str(cdt)))
     v = x.reshape(x.shape[:axis] + (n1, n2) + x.shape[axis + 1:])
-    # A[.., k1, j2, ..] = Σ_j1 W1[k1,j1] v[.., j1, j2, ..]          (MXU)
+    # A[.., k1, j2, ..] = Σ_j1 W1[k1,j1] v[.., j1, j2, ..]
     a = jnp.einsum(f"kj,{pre}jl{post}->{pre}kl{post}", W1, v, precision=_PREC)
     a = a * T.reshape((1,) * axis + (n1, n2) + (1,) * len(post))
-    # X[.., k1, k2, ..] = Σ_j2 a[.., k1, j2, ..] W2[k2,j2]          (MXU)
+    # X[.., k1, k2, ..] = Σ_j2 a[.., k1, j2, ..] W2[k2,j2]
     out = jnp.einsum(f"lj,{pre}kj{post}->{pre}lk{post}", W2, a, precision=_PREC)
     # out is indexed (k2, k1) at (axis, axis+1); flat k = k1 + n1·k2 ⇒ reshape
     return out.reshape(x.shape[:axis] + (n,) + x.shape[axis + 1:])
@@ -183,15 +180,11 @@ def _backend_override():
     return os.environ.get("MPIFFT4PY_TPU_FFT_BACKEND", "").lower()
 
 
-def use_matmul_fft(n: int, platform: str | None = None) -> bool:
-    """Planner policy for the einsum four-step tier.
-
-    Measured on v5e (256³ r2c+c2r): einsum four-step 11.5 ms vs XLA FFT 7.4 ms —
-    the unfused pipeline pays ~3 HBM passes per axis, so XLA stays the default.
-    The matmul tier remains available via MPIFFT4PY_TPU_FFT_BACKEND=matmul and
-    as the building block for the fused Pallas kernels (ops.pallas_fft), which
-    do the whole per-axis transform in one HBM pass.
-    """
+def use_matmul_fft(n: int) -> bool:
+    """Planner policy for the einsum four-step tier: XLA's FFT unless
+    ``MPIFFT4PY_TPU_FFT_BACKEND=matmul``.  The unfused four-step pipeline
+    makes about three memory passes per axis where one FFT makes one, so it
+    is not the default; its speed on the GPU is not measured."""
     ov = _backend_override()
     if ov == "matmul":
         return True

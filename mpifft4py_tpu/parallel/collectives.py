@@ -2,7 +2,7 @@
 
 Reference analog (SURVEY.md §2.4): mpiFFT4py issues blocking ``MPI_Alltoall``
 between local FFT stages.  Here the transpose is ``lax.all_to_all`` on a named
-mesh axis inside ``shard_map`` (riding ICI), with two call styles:
+mesh axis inside ``shard_map`` (NCCL on GPUs), with two call styles:
 
 * ``transpose(x, axis_name, split_axis, concat_axis)`` — one dense all-to-all,
   the direct Alltoall analog.  XLA fuses the pack/unpack relayouts the way
@@ -13,7 +13,7 @@ mesh axis inside ``shard_map`` (riding ICI), with two call styles:
   independent of both the transpose and the per-chunk compute, and the
   chunk-c collective runs while chunk c−1's FFT computes.  The unrolled
   schedule exposes the overlap to XLA's async collective scheduler, so the
-  transpose cost approaches ICI-bandwidth-bound instead of serialised
+  transpose cost approaches link-bandwidth-bound instead of serialised
   comm+compute (BASELINE config 5).
 
 Both operate on per-device blocks inside shard_map, and both are pytree-aware:

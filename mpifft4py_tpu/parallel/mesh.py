@@ -1,8 +1,8 @@
-"""Device-mesh construction — the TPU-native "communicator".
+"""Device-mesh construction — the JAX "communicator".
 
 Reference analog: mpiFFT4py takes a caller-supplied ``mpi4py`` communicator and,
 for pencil, ``Comm.Split``s it into two orthogonal sub-communicators
-(SURVEY.md §2.4).  The TPU-native equivalent is a ``jax.sharding.Mesh``:
+(SURVEY.md §2.4).  The JAX equivalent is a ``jax.sharding.Mesh``:
 
 * slab/line  →  1D mesh, axis name ``"p"``     (the reference's whole comm)
 * pencil     →  2D mesh, axis names ``("p1", "p2")``  (the two sub-comms; the
@@ -16,9 +16,9 @@ The ``comm`` argument of the R2C/C2C constructors accepts:
   * an int ``P``                  — first ``P`` devices,
   * a sequence of jax devices     — exactly those devices.
 
-Multi-slice note: meshes built from all devices put the ICI-connected slice
-innermost by construction (`mesh_utils.create_device_mesh`), so the all-to-alls
-ride ICI; a DCN-spanning outer axis composes the same way (scaling-book recipe).
+The mesh follows the decomposition alone: the cards of one host are joined
+all to all (four H100s over NVLink), so no device order is faster than
+another and no axis needs to sit on a particular link.
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ def pencil_mesh(comm: CommLike = None, P1: Optional[int] = None) -> Mesh:
     """2D mesh over ``comm`` with axes ``("p1", "p2")``.
 
     ``P1`` mirrors the reference pencil constructor kwarg: the size of the first
-    process-grid dimension.  Default: the most square factorization (favoring
-    P1 <= P2, which keeps the larger group on the contiguous inner ICI axis).
+    process-grid dimension.  Default: the most square factorization, with
+    P1 <= P2 (the reference's default grid).
     """
     if isinstance(comm, Mesh):
         if len(comm.axis_names) != 2:

@@ -1,4 +1,4 @@
-"""Pencil (2D) decomposition of 3D FFTs — TPU-native.
+"""Pencil (2D) decomposition of 3D FFTs.
 
 Reference analog: ``mpiFFT4py/pencil.py`` ``R2C`` on a P1×P2 process grid
 (reference mount empty at build time; parity target SURVEY.md §2.1 #4, §3.4).
@@ -8,12 +8,12 @@ Algorithm (the textbook pencil pipeline):
               → transpose over P1 → local fft(axis 0)
     inverse:  mirror image.
 
-TPU-native mapping:
+Mapping onto JAX:
 
 * process grid        = 2D ``Mesh`` with axes ``("p1", "p2")`` — the two
   orthogonal sub-communicators the reference builds with ``Comm.Split`` are
   exactly the named mesh axes; each ``lax.all_to_all`` over one name is an
-  Alltoall within one P1- or P2-sized group, riding ICI.
+  Alltoall within one P1- or P2-sized group.
 * layouts (global shapes; X-aligned spectral pencils, reference default):
 
       physical: real    (N0, N1, N2)    sharded P("p1", "p2", None)
@@ -21,7 +21,7 @@ TPU-native mapping:
 
 * uneven Hermitian axis: pencil *must* shard the halved axis (Nf = N2//2+1,
   odd).  MPI does uneven blocks with Alltoallw derived datatypes; the static-
-  shape TPU equivalent is alignment padding to ``Nfp = ceil(Nf/P2)·P2`` with
+  shape equivalent is alignment padding to ``Nfp = ceil(Nf/P2)·P2`` with
   structural zero modes k >= Nf (transparent to spectral algebra, removed by
   every dealias mask, sliced off before the final irfft).
 * ``alignment="X"`` (reference kwarg) selects which axis the spectral array
@@ -43,7 +43,6 @@ from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from .base import BaseFFT, local_wavenumber_full
-from .slab import _PackedDist1D
 from .parallel.mesh import AXIS1, AXIS2, pencil_mesh, check_divisible
 from .ops import fft_core as fc
 from .utils.spectral import (
@@ -58,13 +57,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-class _Pencil3D(_PackedDist1D, BaseFFT):
+class _Pencil3D(BaseFFT):
     """Shared pencil machinery; subclasses fix the last-axis transform
     (R2C: halved Hermitian axis with Nfp alignment padding; C2C: full
     complex axis, divisibility-sharded)."""
 
     ndim = 3
-    _dist_axis = AXIS1  # the one live transpose axis when P2 == 1 (packed path)
     _is_r2c = True
 
     def __init__(self, N, L, comm=None, precision: str = "single", *,
@@ -245,363 +243,7 @@ class _Pencil3D(_PackedDist1D, BaseFFT):
             return x
         return jnp.pad(x, [(0, 0), (0, 0), (0, self.Nfp - x.shape[2])])
 
-    # -- Pallas distributed pipeline (MXU local stages on EVERY rank) ----------
-    #
-    # Pencil analog of slab's distributed fast tier (VERDICT r1 item 2): the
-    # local z/y/x stages run the planar MXU kernels and the two grouped
-    # all-to-alls move the (re, im) float32 pair.  The PLANAR (not packed)
-    # z-layout is used because pencil shards the Hermitian axis: planar
-    # stores X[k] directly (no plane-0 riders), so slicing to the alignment
-    # width Nfp and the existing transpose choreography apply unchanged.
-    # Cost note: the y/x kernels see Nfp/P2 lanes — below 128 Mosaic pads the
-    # lane dim, wasting bandwidth on those stages for large P2; a packed
-    # layout with halo re-alignment would fix that (future work).
-
-    def _kernel_gates_ok(self, dealias) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if self.policy.path != "native" or self.float != np.float32:
-            return False
-        if not (jax.default_backend() == "tpu"
-                or os.environ.get("MPIFFT4PY_TPU_PALLAS_DIST") == "force"):
-            return False
-        from .ops import pallas_fft3d as p3
-        if dealias == "3/2-rule":
-            # padded variant: local FFTs run at the M sizes (truncation to
-            # the N grid is folded into each stage's work_fn)
-            M0, M1 = int(self.M[0]), int(self.M[1])
-            return (self._z_kernel_ok(padded=True) and p3.supported_c2c(M0)
-                    and p3.supported_c2c(M1))
-        N0, N1 = int(self.N[0]), int(self.N[1])
-        return (self._z_kernel_ok() and p3.supported_c2c(N0)
-                and p3.supported_c2c(N1))
-
-    def _z_kernel_ok(self, padded: bool = False) -> bool:
-        from .ops import pallas_fft3d as p3
-        return p3.supported_r2c(int(self.M[2] if padded else self.N[2]))
-
-    def _packed_dist_ok(self, dealias) -> bool:
-        # P2 == 1: the first (P2-group) all-to-all is degenerate and the
-        # choreography collapses to slab's single transpose over P1 — run the
-        # packed-Hermitian MXU pipeline (_PackedDist1D, z-width exactly N2/2,
-        # no Nfp lane padding, fused z+y eligible).  Output width Nf == Nfp.
-        # X-aligned only: the collapsed choreography produces the slab
-        # spectral layout, which is what alignment="X" commits to.
-        return (self._is_r2c and self.P2 == 1 and self.alignment == "X"
-                and dealias != "3/2-rule"
-                and (int(self.N[2]) // 2) % 128 == 0
-                and self._kernel_gates_ok(dealias))
-
-    def _pallas_dist_ok(self, dealias) -> bool:
-        return self.P2 <= 128 and self._kernel_gates_ok(dealias)
-
-    def _packed_iface_ok(self, dealias) -> bool:
-        # packed planar interface: P2==1 rides the slab-collapsed
-        # _PackedDist1D pipeline; P2>1 rides the WIDE choreography below
-        return self._packed_dist_ok(dealias) or self._packed_wide_ok(dealias)
-
-    # -- packed WIDE choreography (P2 > 1): full-lane packed pipeline ---------
-    #
-    # The reference pencil spectral layout shards the Hermitian axis over P2,
-    # which leaves the y/x-stage kernels Nfp/P2 lanes — below 128 Mosaic pads
-    # the lane dim, wasting MXU cycles and VMEM bandwidth (VERDICT r2 weak #1;
-    # measured single-chip: planar pencil 5.17 ms vs packed 3.51 ms at 256³).
-    # The packed interface is NOT reference API, so its spectral layout is
-    # free: keep the packed z-width h fully lane-resident and shard ROWS —
-    #
-    #     physical   (N0/P1, N1/P2, N2)      P("p1","p2",None)
-    #  z→ packed     (N0/P1, N1/P2, h)
-    #  a2a(P2: split 0 → concat 1)  → (N0/(P1·P2), N1, h)   y-FFT @ h lanes
-    #  a2a((p1,p2): split 1 → concat 0) → (N0, N1/(P1·P2), h)  x-FFT @ h lanes
-    #
-    # Spectral state (N0, N1/(P1·P2), h), spec P(None, ("p1","p2"), None).
-    # Same collective COUNT as the standard forward (2); the second rides the
-    # joint P1×P2 group (≈ full-pair volume vs (P1−1)/P1 — the price of full
-    # lanes).  Spectral algebra is elementwise ⇒ the DNS packed solver works
-    # unchanged on this layout.  Requires P1·P2 | N0 and P1·P2 | N1.
-
-    def _packed_wide_ok(self, dealias) -> bool:
-        if not (self._is_r2c and self.P2 > 1 and dealias != "3/2-rule"):
-            return False
-        if (int(self.N[2]) // 2) % 128 != 0:
-            return False
-        if not self._kernel_gates_ok(dealias):
-            return False
-        g = self.P1 * self.P2
-        return int(self.N[0]) % g == 0 and int(self.N[1]) % g == 0
-
-    def _packed_spec(self):
-        if self.P2 > 1:
-            return P(None, (AXIS1, AXIS2), None)
-        return self.complex_spec()
-
-    def _nl_dist_ok(self, dealias) -> bool:
-        # P2 == 1 collapses to the slab 1D pipeline and inherits the fused
-        # path unchanged; P2 > 1 rides the WIDE choreography with the hooks
-        # below (z-only fused cross, y after the P2 a2a, x-epilogue after
-        # the joint a2a)
-        if self.P2 > 1:
-            from .ops import pallas_fft3d as p3
-            return (dealias == "2/3-rule" and self._packed_wide_ok(dealias)
-                    and p3.fft_x_epilogue_ok(int(self.N[0])))
-        return _PackedDist1D._nl_dist_ok(self, dealias)
-
-    def _nl_pair_pre_x(self, a, b, c, d, op):
-        """WIDE-layout leg of the fused nonlinear forward: the y axis is
-        sharded in physical space, so only the z-rfft fuses behind the
-        shard-local cross (cross_rfft_z_packed); y transforms as the P2
-        stage's work_fn and x waits for the joint transpose (the epilogue
-        kernel transforms it)."""
-        if self.P2 == 1:
-            return _PackedDist1D._nl_pair_pre_x(self, a, b, c, d, op)
-        from .ops import pallas_fft3d as p3
-        mul, two = op == "mul", op == "cross2"
-        R = a.shape[1] * a.shape[2]
-        n2 = a.shape[-1]
-        if p3.cross_z_ok(n2, R, two=two, mul=mul):
-            fzr, fzi = (p3.mul_rfft_z_packed(a, b, dif=True) if mul
-                        else p3.cross_rfft_z_packed(a, b, c, d, dif=True))
-        else:
-            fzr, fzi = p3.rfft_last_packed(self._xla_cross(a, b, c, d, op),
-                                           dif=True)
-        pair = self._stage((fzr, fzi), AXIS2, 1, 2,
-                           lambda t: p3.fft_axis_planar(t[0], t[1], axis=2),
-                           pipeline_axis=3)
-        return self._stage_joint(pair, (AXIS1, AXIS2), 2, 1,
-                                 pipeline_axis=3)
-
-    def _nl_purify(self, dr, di):
-        if self.P2 == 1:
-            return _PackedDist1D._nl_purify(self, dr, di)
-        return self._purify_plane0_wide(dr, di)
-
-    def _stage_joint(self, x, axes, split_axis, concat_axis,
-                     work_fn=None, *, pipeline_axis, pre_fn=None):
-        """Transpose stage over the JOINT (P1×P2) group.  rdma kernels
-        address peers on ONE mesh axis, so communication='rdma' rides the
-        XLA all-to-all here (the P2-group stage still uses rdma)."""
-        from .parallel.collectives import transpose, transpose_pipelined
-        g = int(np.prod([self.mesh.shape[a] for a in axes]))
-        if g == 1:
-            if pre_fn is not None:
-                x = pre_fn(x)
-            return work_fn(x) if work_fn is not None else x
-        if self.communication == "pipelined":
-            return transpose_pipelined(x, axes, split_axis, concat_axis,
-                                       work_fn, pipeline_axis,
-                                       nchunks=self._nchunks, pre_fn=pre_fn,
-                                       group_size=g)
-        if pre_fn is not None:
-            x = pre_fn(x)
-        x = transpose(x, axes, split_axis, concat_axis)
-        return work_fn(x) if work_fn is not None else x
-
-    def _k1_index_wide(self):
-        return lax.axis_index((AXIS1, AXIS2))
-
-    def _packed_mask_wide(self, h):
-        c = dealias_cutoffs(self.N)
-        N0, N1 = int(self.N[0]), int(self.N[1])
-        n1 = N1 // (self.P1 * self.P2)
-        r = self._k1_index_wide()
-        k0 = local_wavenumber_full(N0, N0, 0, jnp.float32)
-        k1 = local_wavenumber_full(N1, n1, r, jnp.float32)
-        k2 = jnp.arange(h, dtype=jnp.float32)
-        perm = self.packed_z_perm
-        if perm is not None:
-            k2 = k2[jnp.asarray(perm)]
-        return ((jnp.abs(k0)[:, None, None] < c[0])
-                & (jnp.abs(k1)[None, :, None] < c[1])
-                & (k2[None, None, :] < c[2]))
-
-    def _purify_plane0_wide(self, yr, yi):
-        """Drop the Nyquist rider from packed plane 0; the (k0, k1) plane's
-        k1 axis is sharded over the joint group — gather just that plane."""
-        from .ops import pallas_fft3d as p3
-        qr, qi = yr[..., 0], yi[..., 0]
-        axes = (qr.ndim - 2, qr.ndim - 1)
-        ax = qr.ndim - 1
-        gr = lax.all_gather(qr, (AXIS1, AXIS2), axis=ax, tiled=True)
-        gi = lax.all_gather(qi, (AXIS1, AXIS2), axis=ax, tiled=True)
-        fr, fi = p3._flipconj(gr, gi, axes)
-        n1 = qr.shape[ax]
-        r = self._k1_index_wide()
-        cr = lax.dynamic_slice_in_dim(fr, r * n1, n1, ax)
-        ci = lax.dynamic_slice_in_dim(fi, r * n1, n1, ax)
-        p0r = 0.5 * (qr + cr)
-        p0i = 0.5 * (qi + ci)
-        return (jnp.concatenate([p0r[..., None], yr[..., 1:]], axis=-1),
-                jnp.concatenate([p0i[..., None], yi[..., 1:]], axis=-1))
-
-    def _fwd_local_packed(self, u, dealias):
-        if self.P2 == 1:
-            return _PackedDist1D._fwd_local_packed(self, u, dealias)
-        from .ops import pallas_fft3d as p3
-        off = u.ndim - 3
-        yr, yi = p3.rfft_last_packed(u, dif=True)
-        pair = self._stage((yr, yi), AXIS2, off, 1 + off,
-                           lambda t: p3.fft_axis_planar(t[0], t[1],
-                                                        axis=1 + off),
-                           pipeline_axis=2 + off)
-        pair = self._stage_joint(pair, (AXIS1, AXIS2), 1 + off, off,
-                                 lambda t: p3.fft_axis_planar(t[0], t[1],
-                                                              axis=off),
-                                 pipeline_axis=2 + off)
-        yr, yi = pair
-        if dealias == "2/3-rule":
-            yr, yi = self._purify_plane0_wide(yr, yi)
-            m = self._packed_mask_wide(yr.shape[-1])
-            yr, yi = jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-        return yr, yi
-
-    def _bwd_local_packed(self, pair, dealias):
-        if self.P2 == 1:
-            return _PackedDist1D._bwd_local_packed(self, pair, dealias)
-        from .ops import pallas_fft3d as p3
-        yr, yi = pair
-        off = yr.ndim - 3
-        if dealias == "2/3-rule":
-            m = self._packed_mask_wide(yr.shape[-1])
-            yr, yi = jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-        pair = self._stage_joint(
-            (yr, yi), (AXIS1, AXIS2), off, 1 + off, pipeline_axis=2 + off,
-            pre_fn=lambda t: p3.fft_axis_planar(t[0], t[1], axis=off,
-                                                inverse=True))
-        pair = self._stage(
-            pair, AXIS2, 1 + off, off, pipeline_axis=2 + off,
-            pre_fn=lambda t: p3.fft_axis_planar(t[0], t[1], axis=1 + off,
-                                                inverse=True))
-        return p3.irfft_last_packed(pair[0], pair[1], int(self.N[2]),
-                                    dif=True).astype(self.float)
-
-    def _z_fwd_planar(self, u):
-        """Local z-stage of the planar MXU pipeline (R2C: rectangular real
-        matmuls to the Nfp alignment width; C2C override: dense c2c lanes)."""
-        from .ops import pallas_fft3d as p3
-        yr, yi = p3.rfft_last_planar(u)           # (n0, n1, round_up(Nf,128))
-        return p3.fit_width(yr, yi, self.Nfp)
-
-    def _z_bwd_planar(self, pr, pi):
-        from .ops import pallas_fft3d as p3
-        w = p3._round_up(self.Nf, 128)
-        yr, yi = p3.fit_width(pr[..., :self.Nf], pi[..., :self.Nf], w)
-        return p3.irfft_last_planar(yr, yi, int(self.N[2])).astype(self.float)
-
-    def _fwd_dist_planar(self, u, dealias):
-        from .ops import pallas_fft3d as p3
-        padded = dealias == "3/2-rule"
-        N0, N1 = int(self.N[0]), int(self.N[1])
-        if padded:
-            yr, yi = self._z_fwd_planar_padded(u)  # trunc + 1/padsize³ folded
-        else:
-            yr, yi = self._z_fwd_planar(u)
-
-        def fftw(axis, n):
-            # local FFT (+ padded truncation) as the stage work_fn
-            def w(t):
-                ar, ai = p3.fft_axis_planar(t[0], t[1], axis=axis)
-                if padded:
-                    return (trunc_full_axis(ar, axis, n),
-                            trunc_full_axis(ai, axis, n))
-                return ar, ai
-            return w
-
-        # rdma megakernels implement the X choreography at unpadded sizes;
-        # Y / padded ride the generic _stage (which serves rdma a2a too)
-        use_rdma = (self.communication == "rdma" and self.alignment == "X"
-                    and not padded)
-        if self.alignment == "Y":
-            pair = self._stage((yr, yi), AXIS1, 2, 0, fftw(0, N0),
-                               pipeline_axis=1)
-            pair = self._stage(pair, AXIS2, 0, 1, fftw(1, N1),
-                               pipeline_axis=2)
-        else:
-            if use_rdma and self.P2 > 1:
-                # y-stage megakernel over the P2 group (parallel.rdma)
-                from .parallel.rdma import fused_transpose_fft_y, rdma_interpret
-                interp = rdma_interpret()
-                pair = fused_transpose_fft_y(
-                    yr, yi, AXIS2, self.P2, mesh_axes=self.mesh.axis_names,
-                    nchunks=self._nchunks, interpret=interp)
-            else:
-                pair = self._stage((yr, yi), AXIS2, 2, 1, fftw(1, N1),
-                                   pipeline_axis=0)
-            if use_rdma and self.P1 > 1:
-                # x-stage megakernel: transpose + x-FFT fused with DMA overlap
-                # (same (rows, N1, lanes) pattern as the slab forward)
-                from .parallel.rdma import fused_transpose_fft_x, rdma_interpret
-                interp = rdma_interpret()
-                pair = fused_transpose_fft_x(
-                    pair[0], pair[1], AXIS1, self.P1,
-                    mesh_axes=self.mesh.axis_names, nchunks=self._nchunks,
-                    interpret=interp)
-            else:
-                pair = self._stage(pair, AXIS1, 1, 0, fftw(0, N0),
-                                   pipeline_axis=2)
-        x = lax.complex(pair[0], pair[1])
-        if padded:
-            return self._fix_nyq(x)  # 1/padsize³ folded into the z stage
-        if dealias == "2/3-rule":
-            x = jnp.where(self._dealias_local(), x, 0)
-        return x
-
-    def _bwd_dist_planar(self, fu, dealias):
-        from .ops import pallas_fft3d as p3
-        padded = dealias == "3/2-rule"
-        M0, M1 = int(self.M[0]), int(self.M[1])
-        if dealias == "2/3-rule":
-            fu = jnp.where(self._dealias_local(), fu, 0)
-        pr = jnp.real(fu).astype(jnp.float32)
-        pi = jnp.imag(fu).astype(jnp.float32)
-
-        def ifftw(axis, m):
-            # (padded zero-fill +) local inverse FFT as the stage pre_fn
-            def w(t):
-                ar, ai = t
-                if padded:
-                    ar = pad_full_axis(ar, axis, m)
-                    ai = pad_full_axis(ai, axis, m)
-                return p3.fft_axis_planar(ar, ai, axis=axis, inverse=True)
-            return w
-
-        use_rdma = (self.communication == "rdma" and self.alignment == "X"
-                    and not padded)
-        if self.alignment == "Y":
-            pair = self._stage((pr, pi), AXIS2, 1, 0, pipeline_axis=2,
-                               pre_fn=ifftw(1, M1))
-            pair = self._stage(pair, AXIS1, 0, 2, pipeline_axis=1,
-                               pre_fn=ifftw(0, M0))
-        else:
-            if use_rdma and self.P1 > 1:
-                from .parallel.rdma import fused_ifft_x_transpose, rdma_interpret
-                interp = rdma_interpret()
-                pair = fused_ifft_x_transpose(
-                    pr, pi, AXIS1, self.P1,
-                    mesh_axes=self.mesh.axis_names, nchunks=self._nchunks,
-                    interpret=interp)
-            else:
-                pair = self._stage((pr, pi), AXIS1, 0, 1, pipeline_axis=2,
-                                   pre_fn=ifftw(0, M0))
-            if use_rdma and self.P2 > 1:
-                from .parallel.rdma import fused_ifft_y_transpose, rdma_interpret
-                interp = rdma_interpret()
-                pair = fused_ifft_y_transpose(
-                    pair[0], pair[1], AXIS2, self.P2,
-                    mesh_axes=self.mesh.axis_names, nchunks=self._nchunks,
-                    interpret=interp)
-            else:
-                pair = self._stage(pair, AXIS2, 1, 2, pipeline_axis=0,
-                                   pre_fn=ifftw(1, M1))
-        if padded:
-            return self._z_bwd_planar_padded(pair[0], pair[1])
-        return self._z_bwd_planar(pair[0], pair[1])
-
     def _fwd_local(self, u, dealias):
-        if self._packed_dist_ok(dealias):
-            return self._fwd_dist_pallas(u, dealias)   # _PackedDist1D (slab-class)
-        if self._pallas_dist_ok(dealias):
-            return self._fwd_dist_planar(u, dealias)
         padded = dealias == "3/2-rule"
         N0, N1 = int(self.N[0]), int(self.N[1])
         x = self._fft_last(u)                     # (n0, n1, Nf|Mf widths)
@@ -673,10 +315,6 @@ class _Pencil3D(_PackedDist1D, BaseFFT):
         return x.at[..., off].set(sym)
 
     def _bwd_local(self, fu, dealias):
-        if self._packed_dist_ok(dealias):
-            return self._bwd_dist_pallas(fu, dealias)   # _PackedDist1D
-        if self._pallas_dist_ok(dealias):
-            return self._bwd_dist_planar(fu, dealias)
         padded = dealias == "3/2-rule"
         M0, M1 = int(self.M[0]), int(self.M[1])
         if dealias == "2/3-rule":
@@ -704,7 +342,7 @@ class _Pencil3D(_PackedDist1D, BaseFFT):
 
     # -- double-word (emulated fp64) local pipelines ----------------------------------
     # Same choreography over DD/DDComplex float32-pair pytrees (see slab.py for
-    # the design notes; TPU-validated <1e-14 relative).
+    # the design notes).
 
     def _align_pad2_dd(self, x):
         if x.shape[2] == self.Nfp:
@@ -911,28 +549,13 @@ class R2C(_Pencil3D):
         from .utils import spectral_dd as sdd
         return sdd.pad_half_axis_dd(x, 2, self.Mf)
 
-    # padded planar-tier z hooks (trunc/pad + padsize³ folded into matrices)
-    def _z_fwd_planar_padded(self, u):
-        from .ops import pallas_fft3d as p3
-        yr, yi = p3.rfft_last_planar(u, nf=self.Nf,
-                                     scale=1.0 / self.padsize ** 3)
-        return p3.fit_width(yr, yi, self.Nfp)
-
-    def _z_bwd_planar_padded(self, pr, pi):
-        from .ops import pallas_fft3d as p3
-        W = p3._round_up(self.Nf, 128)
-        pr, pi = p3.fit_width(pr[..., :self.Nf], pi[..., :self.Nf], W)
-        u = p3.irfft_last_planar(pr, pi, int(self.M[2]), nf_in=self.Nf,
-                                 scale=self.padsize ** 3)
-        return u.astype(self.float)
-
 
 class C2C(_Pencil3D):
     """Complex ↔ complex 3D pencil transform.
 
     Scope source: BASELINE.json:5 puts complex↔complex over BOTH
     decompositions in scope (reference mount empty; ``slab.C2C`` at
-    slab.py is the distributed template — VERDICT r2 next-step 3).
+    slab.py is the distributed template).
 
     Both spaces are complex (N0, N1, N2); physical sharded
     P("p1", "p2", None), spectral (alignment "X") P(None, "p1", "p2") with
@@ -996,43 +619,3 @@ class C2C(_Pencil3D):
         d = DDComplex.from_c128(np.asarray(u, np.complex128))
         sh = NamedSharding(self.mesh, self.real_spec())
         return jax.tree.map(lambda v: jax.device_put(v, sh), d)
-
-    # -- Pallas planar distributed tier (dense c2c z-lanes) --------------------
-
-    def _z_kernel_ok(self, padded: bool = False) -> bool:
-        from .ops import pallas_fft3d as p3
-        return p3.supported_c2c_last(int(self.M[2] if padded else self.N[2]))
-
-    def _z_fwd_planar(self, u):
-        from .ops import pallas_fft3d as p3
-        xr = jnp.real(u).astype(jnp.float32)
-        xi = jnp.imag(u).astype(jnp.float32)
-        return p3.fft_last_planar_c2c(xr, xi)
-
-    def _z_bwd_planar(self, pr, pi):
-        from .ops import pallas_fft3d as p3
-        yr, yi = p3.fft_last_planar_c2c(pr, pi, inverse=True)
-        return lax.complex(yr, yi)
-
-    # padded planar-tier z hooks (full complex axis; explicit trunc/scale —
-    # the fold-into-matrix trick is a half-axis/real-matmul property)
-    def _z_trunc_planar(self, yr, yi):
-        n2 = int(self.N[2])
-        return trunc_full_axis(yr, 2, n2), trunc_full_axis(yi, 2, n2)
-
-    def _z_fwd_planar_padded(self, u):
-        yr, yi = self._z_fwd_planar(u)
-        yr, yi = self._z_trunc_planar(yr, yi)
-        s = np.float32(1.0 / self.padsize ** 3)
-        return yr * s, yi * s
-
-    def _z_bwd_planar_padded(self, pr, pi):
-        from .ops import pallas_fft3d as p3
-        M2 = int(self.M[2])
-        pr = pad_full_axis(pr, 2, M2)
-        pi = pad_full_axis(pi, 2, M2)
-        yr, yi = p3.fft_last_planar_c2c(pr, pi, inverse=True)
-        return lax.complex(yr, yi) * self.complex.type(self.padsize ** 3)
-
-    def _packed_iface_ok(self, dealias) -> bool:
-        return False  # packed-Hermitian layout is an R2C concept

@@ -3,10 +3,10 @@
 Reference analog: ``mpiFFT4py/serialFFT/__init__.py`` picks pyfftw if importable,
 else numpy (SURVEY.md §2.1 #6).  Here the tiers are:
 
-* ``matmul_fft`` — MXU-targeted four-step/matmul FFT kernels (the FFTW analog);
-  used by the distributed transforms through the dispatch in ``ops.fft_core``.
-* ``xla_fft``   — ``jnp.fft`` wrappers (the always-available fallback, analog of
-  the numpy backend).
+* ``xla_fft``   — ``jnp.fft`` wrappers (cuFFT on GPUs — the FFTW analog and
+  the default).
+* ``ops.fft_core`` — an einsum four-step/matmul FFT, off by default, used by
+  the distributed transforms through the dispatch in ``ops.fft_core``.
 
 This package exports the ``xla_fft`` surface as the canonical call signatures;
 the distributed L3 classes choose the fast path per (size, dtype) via

@@ -1,8 +1,8 @@
 """Discrete cosine transforms (types 1–4) on top of XLA FFTs.
 
 The reference's FFTW backend exposes ``dct`` (scipy.fftpack semantics) for
-Shen-basis spectral solvers (SURVEY.md §2.1 #7, [K:med]).  TPU has no native DCT,
-so these are built from even-extension FFTs — pure ``jnp`` ops, jittable and
+Shen-basis spectral solvers (SURVEY.md §2.1 #7, [K:med]).  XLA has no DCT
+primitive, so these are built from even-extension FFTs — pure ``jnp`` ops, jittable and
 shardable.  Conventions match ``scipy.fftpack.dct``/``idct`` with ``norm=None``:
 
 * type 2 (default):  ``y[k] = 2 Σ_n x[n] cos(πk(2n+1)/(2N))``

@@ -1,6 +1,6 @@
 """L1 serial-FFT tier: XLA-backed functional transforms.
 
-TPU-native analog of the reference backends ``mpiFFT4py/serialFFT/pyfftw_fft.py``
+Analog of the reference backends ``mpiFFT4py/serialFFT/pyfftw_fft.py``
 (FFTW plan-cache wrappers) and ``numpy_fft.py`` (reference mount empty at build
 time; parity target: SURVEY.md §2.1 components #6–8).
 
@@ -14,7 +14,7 @@ Design mapping (reference → here):
   reference call signature, including ``threads=`` and ``planner_effort=`` kwargs,
   which are accepted and ignored.
 * ``dct`` (scipy.fftpack semantics, used by Shen-basis solvers) is implemented
-  via even-extension FFTs so it runs on TPU — see ``dct.py``.
+  via even-extension FFTs so it runs on any XLA backend — see ``dct.py``.
 
 Every function is safe to call inside ``jit``/``shard_map`` — they are thin
 ``jnp.fft`` calls and compose with sharding.
@@ -98,32 +98,11 @@ def irfft2(a, b=None, axes=(-2, -1), s=None, **kw):
     return jnp.fft.irfft2(a, s=s, axes=axes)
 
 
-def _pallas3d_ok(shape) -> bool:
-    import os
-    if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-        return False
-    import jax
-    if jax.default_backend() != "tpu":
-        return False
-    from ..ops import pallas_fft3d as p3
-    return (len(shape) == 3 and p3.supported_r2c(shape[2])
-            and p3.supported_c2c(shape[0]) and p3.supported_c2c(shape[1]))
-
-
 def rfftn(a, b=None, axes=None, **kw):
     _ignore(kw)
-    if (axes in (None, (0, 1, 2))) and a.ndim == 3 \
-            and a.dtype == jnp.float32 and _pallas3d_ok(a.shape):
-        from ..ops import pallas_fft3d as p3
-        return p3.rfft3d(a)  # MXU fast path (same numpy conventions)
     return jnp.fft.rfftn(a, axes=axes)
 
 
 def irfftn(a, b=None, axes=None, s=None, **kw):
     _ignore(kw)
-    if (axes in (None, (0, 1, 2))) and a.ndim == 3 and s is not None \
-            and len(s) == 3 and a.dtype == jnp.complex64 and _pallas3d_ok(tuple(s)):
-        from ..ops import pallas_fft3d as p3
-        if a.shape[2] == s[2] // 2 + 1:
-            return p3.irfft3d(a, tuple(s))
     return jnp.fft.irfftn(a, s=s, axes=axes)

@@ -1,4 +1,4 @@
-"""Slab (1D) decomposition of 3D FFTs — TPU-native.
+"""Slab (1D) decomposition of 3D FFTs.
 
 Reference analog: ``mpiFFT4py/slab.py`` ``R2C``/``C2C`` (reference mount empty at
 build time; parity target SURVEY.md §2.1 #3, §3.2–3.3 call stacks).  Algorithm
@@ -7,13 +7,13 @@ build time; parity target SURVEY.md §2.1 #3, §3.2–3.3 call stacks).  Algorit
     forward:  local rfft2(axes 1,2) → global transpose → local fft(axis 0)
     inverse:  local ifft(axis 0)    → global transpose → local irfft2(axes 1,2)
 
-TPU-native mapping:
+Mapping onto JAX:
 
 * decomposition      = ``NamedSharding`` over a 1D Mesh (axis ``"p"``):
   physical space sharded on axis 0, spectral space on axis 1; the halved
   (Hermitian) last axis is never sharded — same invariant as the reference.
 * MPI ``Alltoall``   = ``lax.all_to_all(..., "p", tiled=True)`` inside
-  ``shard_map`` — one collective per direction, riding ICI.  The reference's
+  ``shard_map`` — one collective per direction (NCCL on GPUs).  The reference's
   explicit reshape/rollaxis pack/unpack around the Alltoall disappears: XLA
   fuses layout changes into the collective (the role Alltoallw's derived
   datatypes played).
@@ -51,387 +51,7 @@ from .utils.spectral import (
 __all__ = ["R2C", "C2C"]
 
 
-class _PackedDist1D:
-    """Packed-Hermitian MXU pipeline for R2C transforms whose distributed
-    choreography is ONE 1D transpose: slab always; pencil when its second
-    mesh axis is degenerate (P2 == 1, so the first all-to-all vanishes and
-    the remaining choreography is exactly slab's).  Mixin over BaseFFT;
-    ``_dist_axis`` names the mesh axis the transpose rides.
-
-    The stage helpers below accept an optional LEADING batch axis (component
-    stacks, e.g. the DNS velocity triplet): leading dims ride the kernel
-    grids, and the transpose stage axes shift by ``ndim - 3``."""
-
-    _dist_axis = AXIS
-
-    # -- packed pipeline stages (ndim 3 or 4: optional leading component axis) --
-
-    @property
-    def packed_z_perm(self):
-        """lane → k2 map of the PACKED interface's last spectral axis, or
-        None when it is the natural 0..h−1 order.  The DIF-split z-stage
-        (ops.pallas_zdif, 512/768/1024-class N2) leaves the packed pair in
-        zdif_perm lane order — consumers permute their 1-D k2/m2 vectors
-        once (lane 0 stays the plane-0 rider either way).  The complex API
-        (fftn/ifftn) is always natural-order; this is a packed-interface-
-        only layout property, like the packed pair itself."""
-        from .ops.pallas_zdif import zdif_active, zdif_perm
-        n2 = int(self.N[2])
-        return zdif_perm(n2) if zdif_active(n2) else None
-
-    def _packed_zy_fwd(self, u, dif: bool = False):
-        """real (…, Np0, N1, N2) -> packed planar pair (…, Np0, N1, h),
-        z and y axes transformed.  ``dif=True`` from packed-interface
-        callers only (z lanes leave in packed_z_perm order where gated)."""
-        from .ops import pallas_fft3d as p3
-        if p3._use_fused_zy(int(self.N[1]), int(self.N[2])):
-            return p3.fused_zy_fwd(u, dif=dif)
-        yr, yi = p3.rfft_last_packed(u, dif=dif)
-        return p3.fft_axis_planar(yr, yi, axis=u.ndim - 2)
-
-    def _packed_zy_bwd(self, yr, yi, dif: bool = False):
-        """packed pair (…, Np0, N1, h) -> real (…, Np0, N1, N2): inverse y
-        then packed z-irfft."""
-        from .ops import pallas_fft3d as p3
-        N2 = int(self.N[2])
-        if p3._use_fused_zy(int(self.N[1]), N2):
-            return p3.fused_zy_bwd(yr, yi, N2, dif=dif).astype(self.float)
-        yr, yi = p3.fft_axis_planar(yr, yi, axis=yr.ndim - 2, inverse=True)
-        return p3.irfft_last_packed(yr, yi, N2, dif=dif).astype(self.float)
-
-    def _packed_x_fwd(self, yr, yi):
-        """(…, Np0, N1, h) -> (…, N0, Np1, h): transpose over ``_dist_axis``
-        + x-axis FFT.  communication='rdma' rides the fused megakernel
-        (per component for stacked inputs — the kernel choreography is 3D)."""
-        from .ops import pallas_fft3d as p3
-        off = yr.ndim - 3
-        Pax = int(self.mesh.shape[self._dist_axis])
-        if (self.communication == "rdma" and Pax > 1
-                and p3.supported_c2c(int(self.N[0]))):
-            # megakernel: transpose + x-FFT fused, chunk c+1's remote DMAs
-            # overlapping chunk c's MXU matmuls (parallel.rdma)
-            from .parallel.rdma import fused_transpose_fft_x, rdma_interpret
-            interp = rdma_interpret()
-            call = lambda r, i: fused_transpose_fft_x(
-                r, i, self._dist_axis, Pax, mesh_axes=self.mesh.axis_names,
-                nchunks=self._nchunks, interpret=interp)
-            if off:
-                outs = [call(yr[c], yi[c]) for c in range(yr.shape[0])]
-                return (jnp.stack([o[0] for o in outs]),
-                        jnp.stack([o[1] for o in outs]))
-            return call(yr, yi)
-        return self._stage((yr, yi), self._dist_axis, 1 + off, off,
-                           lambda t: p3.fft_axis_planar(t[0], t[1], axis=off),
-                           pipeline_axis=2 + off)
-
-    def _packed_x_bwd(self, yr, yi):
-        """(…, N0, Np1, h) -> (…, Np0, N1, h): inverse x-axis FFT + transpose
-        back (mirror of ``_packed_x_fwd``)."""
-        from .ops import pallas_fft3d as p3
-        off = yr.ndim - 3
-        Pax = int(self.mesh.shape[self._dist_axis])
-        if (self.communication == "rdma" and Pax > 1
-                and p3.supported_c2c(int(self.N[0]))):
-            # inverse megakernel: x-IFFT + transpose fused, chunk c's remote
-            # DMAs overlapping chunk c+1's matmuls (parallel.rdma)
-            from .parallel.rdma import fused_ifft_x_transpose, rdma_interpret
-            interp = rdma_interpret()
-            call = lambda r, i: fused_ifft_x_transpose(
-                r, i, self._dist_axis, Pax, mesh_axes=self.mesh.axis_names,
-                nchunks=self._nchunks, interpret=interp)
-            if off:
-                outs = [call(yr[c], yi[c]) for c in range(yr.shape[0])]
-                return (jnp.stack([o[0] for o in outs]),
-                        jnp.stack([o[1] for o in outs]))
-            return call(yr, yi)
-        return self._stage((yr, yi), self._dist_axis, off, 1 + off,
-                           pipeline_axis=2 + off,
-                           pre_fn=lambda t: p3.fft_axis_planar(
-                               t[0], t[1], axis=off, inverse=True))
-
-    def _fwd_dist_pallas(self, u, dealias):
-        yr, yi = self._packed_zy_fwd(u)
-        yr, yi = self._packed_x_fwd(yr, yi)     # (N0, Np1, h), all axes done
-        p0, pny = self._unpack_plane0_dist(yr, yi)
-        body = lax.complex(yr, yi)[..., 1:]
-        x = jnp.concatenate([p0[..., None], body, pny[..., None]], axis=-1)
-        if dealias == "2/3-rule":
-            x = jnp.where(self._dealias_local(), x, 0)
-        return x
-
-    def _bwd_dist_pallas(self, fu, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "2/3-rule":
-            fu = jnp.where(self._dealias_local(), fu, 0)
-        br, bi = p3.pack_spectrum(fu)                        # pointwise
-        yr, yi = self._packed_x_bwd(br, bi)
-        return self._packed_zy_bwd(yr, yi)
-
-    def _flipconj_plane_dist(self, qr, qi):
-        """conj(Q(−k0, −k1)) of the (…, N0, Np1) plane whose last axis is
-        sharded over ``_dist_axis``: gather that plane (1/h of the field),
-        flip-conj, slice the local chunk back."""
-        from .ops import pallas_fft3d as p3
-        axes = (qr.ndim - 2, qr.ndim - 1)
-        if int(self.mesh.shape[self._dist_axis]) == 1:
-            return p3._flipconj(qr, qi, axes)
-        ax = qr.ndim - 1
-        gr = lax.all_gather(qr, self._dist_axis, axis=ax, tiled=True)
-        gi = lax.all_gather(qi, self._dist_axis, axis=ax, tiled=True)
-        fr, fi = p3._flipconj(gr, gi, axes)
-        np1 = qr.shape[ax]
-        r = lax.axis_index(self._dist_axis)
-        cr = lax.dynamic_slice_in_dim(fr, r * np1, np1, ax)
-        ci = lax.dynamic_slice_in_dim(fi, r * np1, np1, ax)
-        return cr, ci
-
-    def _unpack_plane0_dist(self, yr, yi):
-        """Separate the packed plane-0 riders: needs conj(Q(−k)) over the
-        global (k0, k1) plane; k1 is sharded, so gather just that plane."""
-        qr, qi = yr[..., 0], yi[..., 0]                 # (…, N0, Np1)
-        cr, ci = self._flipconj_plane_dist(qr, qi)
-        p0 = lax.complex(0.5 * (qr + cr), 0.5 * (qi + ci))
-        pny = lax.complex(0.5 * (qi - ci), -0.5 * (qr - cr))
-        return p0, pny
-
-    def _purify_plane0_dist(self, yr, yi):
-        """Distributed ``ops.pallas_fft3d.purify_plane0``: drop the Nyquist
-        rider from packed plane 0 (→ X0 exactly) when k1 is sharded."""
-        qr, qi = yr[..., 0], yi[..., 0]
-        cr, ci = self._flipconj_plane_dist(qr, qi)
-        p0r = 0.5 * (qr + cr)
-        p0i = 0.5 * (qi + ci)
-        yr = jnp.concatenate([p0r[..., None], yr[..., 1:]], axis=-1)
-        yi = jnp.concatenate([p0i[..., None], yi[..., 1:]], axis=-1)
-        return yr, yi
-
-    # -- packed-Hermitian planar interface (serial AND distributed) ------------
-    #
-    # The DNS fast path (models.navier_stokes spectral_layout='packed')
-    # keeps the planar (re, im) pair as the SOLVER STATE — no complex
-    # materialisation around any transform.  Under 2/3-rule the plane-0
-    # Nyquist rider is purified away once per forward, so the pair is the
-    # spectrum on k2 = 0..h−1.  For P > 1 the pair crosses the single
-    # transpose as two float32 all-to-alls (or the fused rdma megakernels);
-    # the complex epilogue of fftn/ifftn is skipped entirely (VERDICT r2
-    # next-step 1: the fastest path must survive sharding).
-
-    def _packed_iface_ok(self, dealias) -> bool:
-        raise NotImplementedError  # per-class gate (slab R2C / pencil P2==1)
-
-    def _packed_spec(self):
-        """PartitionSpec of each planar member of the packed spectral pair."""
-        return self.complex_spec()
-
-    # -- fused nonlinear forward + epilogue (DNS fast path, distributed) ------
-
-    def _nl_dist_ok(self, dealias) -> bool:
-        """Gate for ``nl_forward_epilogue_fn``: the 1D-transpose packed
-        choreography (slab at any P; pencil P2==1 — the wide P2>1 layout
-        overrides this off) with the x-epilogue kernel available."""
-        from .ops import pallas_fft3d as p3
-        try:
-            if not self._packed_iface_ok(dealias):
-                return False
-        except Exception:
-            return False
-        return dealias == "2/3-rule" and p3.fft_x_epilogue_ok(int(self.N[0]))
-
-    def nl_forward_epilogue_fn(self, mode: str, visc: float, op: str = "cross",
-                               ri=None, dealias="2/3-rule"):
-        """The solver RHS's whole nonlinear forward on the DISTRIBUTED packed
-        layout, fused (the multi-chip mirror of the serial two-kernel path —
-        models.SpectralSolver._nl_fwd_epilogue_pk): shard-local cross/mul +
-        packed z/y forward (the Pallas fused kernels when their VMEM gates
-        pass, an XLA cross otherwise), the planar pair across the single 1D
-        transpose, then the x-FFT + 2/3-rule mask + spectral epilogue +
-        diffusive term in one kernel using the shard's LOCAL k1/m1 slice;
-        plane-0 purification of the increment is the distributed k2=0-column
-        flip-conj.  Returns a shard_map'd fn
-            (A, B[, C, D][, Tr, Ti], Sr, Si, k0, k1, k2, m0, m1, m2)
-              -> (dr, di)
-        with A/B/C/D physical 3-stacks (B a (1,…) scalar field for op="mul"),
-        (Sr, Si) the packed state carrying the −visc·k²·S term (3-stack, or
-        1-stack for mode="div"), (Tr, Ti) the buoyancy rider pair (ri set),
-        and GLOBAL 1-D wavenumber/mask vectors (shard_map slices k1/m1)."""
-        from .ops import pallas_fft3d as p3
-        assert self._nl_dist_ok(dealias), (mode, op, dealias)
-        two = op == "cross2"
-        mul = op == "mul"
-
-        def local(*xs):
-            if two:
-                a, b, c, d, *xs = xs
-            else:
-                (a, b), xs = xs[:2], xs[2:]
-                c = d = None
-            tr = ti = None
-            if ri is not None:
-                (tr, ti), xs = xs[:2], xs[2:]
-            sr, si, k0, k1, k2, m0, m1, m2 = xs
-            fzr, fzi = self._nl_pair_pre_x(a, b, c, d, op)
-            dr, di = p3.fft_x_epilogue_packed(
-                fzr, fzi, sr, si, k0, k1, k2, m0, m1, m2, mode, visc,
-                buoy=(tr, ti, ri) if ri is not None else None)
-            return self._nl_purify(dr, di)
-
-        rs, ss = self.real_spec(), self._packed_spec()
-        phys, spec = P(None, *rs), P(None, *ss)
-        kv = lambda i: P(ss[i])
-        in_specs = [phys, phys] + ([phys, phys] if two else []) \
-            + ([spec, spec] if ri is not None else []) \
-            + [spec, spec, kv(0), kv(1), kv(2), kv(0), kv(1), kv(2)]
-        return self._smap(local, in_specs=tuple(in_specs),
-                          out_specs=(spec, spec))
-
-    @staticmethod
-    def _xla_cross(a, b, c, d, op):
-        """XLA fallback for the shard-local cross/mul when the fused Pallas
-        kernels' VMEM gates fail."""
-        if op == "mul":
-            return a * b
-        F = jnp.stack([a[1] * b[2] - a[2] * b[1],
-                       a[2] * b[0] - a[0] * b[2],
-                       a[0] * b[1] - a[1] * b[0]])
-        if op == "cross2":
-            F = F + jnp.stack([c[1] * d[2] - c[2] * d[1],
-                               c[2] * d[0] - c[0] * d[2],
-                               c[0] * d[1] - c[1] * d[0]])
-        return F
-
-    def _nl_pair_pre_x(self, a, b, c, d, op):
-        """Shard-local cross/mul + packed z/y forward + the 1D transpose:
-        everything up to the pre-x-stage pair (3, N0, n1_local, h).  The
-        pencil WIDE layout overrides this with its z-only kernel + two-stage
-        choreography."""
-        from .ops import pallas_fft3d as p3
-        mul, two = op == "mul", op == "cross2"
-        n1, n2 = a.shape[-2], a.shape[-1]
-        if mul and p3.cross_zy_ok(n1, n2):
-            fzr, fzi = p3.mul_rfft_zy_packed(a, b, dif=True)
-        elif not mul and p3.cross_zy_ok(n1, n2, two):
-            fzr, fzi = p3.cross_rfft_zy_packed(a, b, c, d, dif=True)
-        else:
-            fzr, fzi = self._packed_zy_fwd(self._xla_cross(a, b, c, d, op),
-                                           dif=True)
-        return self._stage((fzr, fzi), self._dist_axis, 2, 1,
-                           pipeline_axis=3)
-
-    def _nl_purify(self, dr, di):
-        """Distributed plane-0 purify of the packed increment (k2=0-column
-        flip-conj average)."""
-        qr, qi = dr[..., 0], di[..., 0]
-        cr2, ci2 = self._flipconj_plane_dist(qr, qi)
-        return (dr.at[..., 0].set(0.5 * (qr + cr2)),
-                di.at[..., 0].set(0.5 * (qi + ci2)))
-
-    def _packed_mask_local(self, h):
-        """2/3-rule mask over the local packed pair (last axis = h lanes in
-        the packed interface's z order: packed_z_perm applied to the 1-D k2
-        factor BEFORE the broadcast — never a lane gather on the field)."""
-        k0, k1, k2 = self._k_local(jnp.float32)
-        k2p = k2[:h]
-        perm = self.packed_z_perm
-        if perm is not None:
-            k2p = k2p[jnp.asarray(perm)]
-        c = dealias_cutoffs(self.N)
-        return ((jnp.abs(k0)[:, None, None] < c[0])
-                & (jnp.abs(k1)[None, :, None] < c[1])
-                & (jnp.abs(k2p)[None, None, :] < c[2]))
-
-    def _fwd_local_packed(self, u, dealias):
-        yr, yi = self._packed_zy_fwd(u, dif=True)
-        yr, yi = self._packed_x_fwd(yr, yi)
-        if dealias == "2/3-rule":
-            yr, yi = self._purify_plane0_dist(yr, yi)
-            m = self._packed_mask_local(yr.shape[-1])
-            yr, yi = jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-        return yr, yi
-
-    def _bwd_local_packed(self, pair, dealias):
-        yr, yi = pair
-        if dealias == "2/3-rule":
-            m = self._packed_mask_local(yr.shape[-1])
-            yr, yi = jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-        yr, yi = self._packed_x_bwd(yr, yi)
-        return self._packed_zy_bwd(yr, yi, dif=True)
-
-    def _packed_dispatch(self, local, in_builder, out_builder):
-        """shard_map'd variants cached per input ndim (3 = single field,
-        4 = leading component stack)."""
-        fns = {}
-
-        def run(x):
-            nd = jax.tree.leaves(x)[0].ndim
-            fn = fns.get(nd)
-            if fn is None:
-                extra = (None,) * (nd - 3)
-                fn = fns[nd] = self._smap(local, in_specs=in_builder(extra),
-                                          out_specs=out_builder(extra))
-            return fn(x)
-        return run
-
-    def _packed_gate_is_serial(self, dealias) -> bool:
-        """Shared entry gate of the packed interface: raises outside the
-        envelope; returns True when the serial (non-shard_map) kernel chain
-        should serve it (single device, unless MPIFFT4PY_TPU_FORCE_DIST
-        forces the distributed program for benchmarking)."""
-        import os
-        if dealias == "3/2-rule" or not self._packed_iface_ok(dealias):
-            raise ValueError(
-                "packed interface needs an fp32 R2C with a single distributed "
-                "transpose (slab at any P; pencil with P2==1 or the wide "
-                "P2>1 layout), (N2/2)%128==0, TPU, and dealias in "
-                "(None, '2/3-rule')")
-        return (int(self.mesh.shape[self._dist_axis]) == 1 and self.P == 1
-                and not os.environ.get("MPIFFT4PY_TPU_FORCE_DIST"))
-
-    def forward_packed_fn(self, dealias=None):
-        """real (…, N0, N1, N2) -> packed planar pair (…, N0, N1, N2/2) —
-        the MXU pipeline WITHOUT the complex epilogue.  Plane k2=0 carries
-        X0 + i·X_Nyquist; with a 2/3-rule mask the rider is purified away and
-        the pair is the spectrum on k2 = 0..h−1 (how models.navier_stokes
-        spectral_layout='packed' takes the 256³ RK4 step from 112 to 77 ms).
-        Serves P==1 (serial kernel chain) and P>1 (planar pair across the
-        transpose); leading dims batch."""
-        from .ops import pallas_fft3d as p3
-        if self._packed_gate_is_serial(dealias):
-            def fwd(u):
-                yr, yi = p3.rfft3d_packed(u, dif=True)
-                if dealias == "2/3-rule":
-                    yr, yi = p3.purify_plane0(yr, yi)
-                    m = self._packed_mask_local(yr.shape[-1])
-                    yr, yi = jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-                return yr, yi
-            return fwd
-        local = lambda u: self._fwd_local_packed(u, dealias)
-        spec = lambda extra: P(*extra, *self._packed_spec())
-        return self._packed_dispatch(
-            local, lambda extra: P(*extra, *self.real_spec()),
-            lambda extra: (spec(extra), spec(extra)))
-
-    def backward_packed_fn(self, dealias=None):
-        """Inverse of ``forward_packed_fn`` (same envelope)."""
-        from .ops import pallas_fft3d as p3
-        if self._packed_gate_is_serial(dealias):
-            s = tuple(int(n) for n in self.N)
-
-            def bwd(pair):
-                yr, yi = pair
-                if dealias == "2/3-rule":
-                    m = self._packed_mask_local(yr.shape[-1])
-                    yr, yi = jnp.where(m, yr, 0), jnp.where(m, yi, 0)
-                return p3.irfft3d_packed(yr, yi, s, dif=True).astype(self.float)
-            return bwd
-        local = lambda pair: self._bwd_local_packed(pair, dealias)
-        spec = lambda extra: P(*extra, *self._packed_spec())
-        # in_specs: ONE argument whose pytree is the (re, im) pair
-        return self._packed_dispatch(
-            local, lambda extra: ((spec(extra), spec(extra)),),
-            lambda extra: P(*extra, *self.real_spec()))
-
-
-class _Slab3D(_PackedDist1D, BaseFFT):
+class _Slab3D(BaseFFT):
     """Shared slab machinery; subclasses fix the last-axis layout (half vs full)."""
 
     ndim = 3
@@ -596,31 +216,12 @@ class _Slab3D(_PackedDist1D, BaseFFT):
     def _pad_last(self, x):
         raise NotImplementedError
 
-    # -- Pallas 3D serial fast path (single device, MXU kernels) ---------------
-
-    def _pallas3d_ok(self, dealias) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if os.environ.get("MPIFFT4PY_TPU_FORCE_DIST"):  # bench: prove the
-            return False                                # sharded program's speed
-        if self.policy.path != "native" or self.float != np.float32:
-            return False
-        if jax.default_backend() != "tpu":
-            return False
-        from .ops import pallas_fft3d as p3
-        dims = self.M if dealias == "3/2-rule" else self.N
-        return (p3.supported_r2c(int(dims[2]))
-                and p3.supported_c2c(int(dims[0]))
-                and p3.supported_c2c(int(dims[1]))
-                and self._lastf != int(self.N[2]))  # R2C only (not C2C)
-
     def _sym_nyq(self, x):
         """Hermitian-symmetrize the z-Nyquist plane of a padded R2C forward.
 
         trunc_half_axis doubles ĉ[k0,k1,N/2]; the exact alias sum is
         ĉ + conj(ĉ(−k0,−k1)), which differs for general dealiased products
-        (ADVICE r1).  Applied once all axes are spectral: axis 0 is local
+        (tests/test_nyquist_alias.py).  Applied once all axes are spectral: axis 0 is local
         (full), axis 1 is sharded — gather just that plane (1/Nf of data).
         """
         q = x[..., -1]                                     # (N0, Np1)
@@ -652,161 +253,10 @@ class _Slab3D(_PackedDist1D, BaseFFT):
         sym = (q + f)._map(lambda v: v * jnp.float32(0.5))
         return sdd.sym_select_set_dd(x, x.shape[-1] - 1, sym)
 
-    def _fwd_serial_pallas(self, u, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "3/2-rule":
-            x = p3.rfft3d(u)                              # at padded M sizes
-            x = trunc_full_axis(x, 0, int(self.N[0]))
-            x = trunc_full_axis(x, 1, int(self.N[1]))
-            x = trunc_half_axis(x, 2, self._lastf)
-            x = self._sym_nyq(x)
-            return x * self.complex.type(1.0 / self.padsize ** 3)
-        if dealias == "2/3-rule" and p3._use_packed(int(self.N[2])):
-            # mask in the PACKED planar domain: purify (drop the Nyquist
-            # rider), mask the float pair, emit a zero Nyquist column —
-            # measured 3.51 vs 4.31 ms for where() on the unpacked complex
-            # at 256³ (the interleaved-complex mask pass costs ~1 ms)
-            yr, yi = p3.rfft3d_packed(u)
-            yr, yi = p3.purify_plane0(yr, yi)
-            m = self._dealias_local()[..., :yr.shape[-1]]
-            yr = jnp.where(m, yr, 0)
-            yi = jnp.where(m, yi, 0)
-            z = jnp.zeros(yr.shape[:-1] + (1,), self.complex)
-            return jnp.concatenate([lax.complex(yr, yi), z], axis=-1)
-        x = p3.rfft3d(u)
-        if dealias == "2/3-rule":
-            x = jnp.where(self._dealias_local(), x, 0)
-        return x
-
-    def _bwd_serial_pallas(self, fu, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "2/3-rule":
-            fu = jnp.where(self._dealias_local(), fu, 0)
-        if dealias == "3/2-rule":
-            x = pad_full_axis(fu, 0, int(self.M[0]))
-            x = pad_full_axis(x, 1, int(self.M[1]))
-            x = pad_half_axis(x, 2, self._lastf_padded)
-            u = p3.irfft3d(x, tuple(int(m) for m in self.M))
-            return (u * self.float.type(self.padsize ** 3)).astype(self.float)
-        return p3.irfft3d(fu, tuple(int(n) for n in self.N)).astype(self.float)
-
-    # -- Pallas distributed pipeline (MXU local stages on EVERY rank) ----------
-    #
-    # The FFTW analog must serve every rank's local transforms, not just the
-    # P==1 shortcut (VERDICT r1 item 2 / SURVEY §2.1 #7).  Design: the local
-    # stages run the packed-Hermitian planar kernels (ops.pallas_fft3d) and the
-    # transpose moves the planar (re, im) float32 pair — complex never appears
-    # between kernels, and the packed z-width is exactly N2/2 (no 129→256 lane
-    # padding).  The packed plane k2=0 carries X[k2=0] + i·X[k2=Nyq]; after the
-    # axis-0 FFT the riders separate by a flip-conj over the global (k0, k1)
-    # plane — axis 1 is distributed, so the epilogue all-gathers that single
-    # plane (1/h of the field; ~P/h relative traffic) and slices back.
-
-    def _pallas_dist_ok(self, dealias) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if self.policy.path != "native" or self.float != np.float32:
-            return False
-        if self._lastf == int(self.N[2]):  # R2C only
-            return False
-        if not (jax.default_backend() == "tpu"
-                or os.environ.get("MPIFFT4PY_TPU_PALLAS_DIST") == "force"):
-            return False
-        if dealias == "3/2-rule":  # padded sizes stay on the XLA tier for now
-            return False
-        from .ops import pallas_fft3d as p3
-        N0, N1, N2 = (int(n) for n in self.N)
-        # supported_r2c caps the z width: the packed kernels stage (n, n/2)
-        # constant matrices in VMEM, so an unchecked huge N2 would blow the
-        # 16 MB scoped limit instead of falling back to the XLA tier
-        return ((N2 // 2) % 128 == 0 and p3.supported_r2c(N2)
-                and p3.supported_c2c(N0) and p3.supported_c2c(N1))
-
-    # -- Pallas distributed PADDED pipeline (3/2-rule at M sizes) --------------
-    #
-    # VERDICT r2 next-step 4: the mixed-radix kernels already run 3·2^k sizes
-    # (384³ measured 3.25× XLA) — only the dealias gate kept padded
-    # distributed transforms on the XLA tier.  Planar (non-packed) layout:
-    # the M-grid z-width Mf is odd, so the packed trick does not apply;
-    # truncation to the N grid is folded into each stage (messages stay
-    # N-sized across the transpose, same improvement as the XLA tier).
-
-    def _pallas_dist_padded_ok(self) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if self.policy.path != "native" or self.float != np.float32:
-            return False
-        if self._lastf == int(self.N[2]):  # R2C only
-            return False
-        if not (jax.default_backend() == "tpu"
-                or os.environ.get("MPIFFT4PY_TPU_PALLAS_DIST") == "force"):
-            return False
-        from .ops import pallas_fft3d as p3
-        M0, M1, M2 = (int(m) for m in self.M)
-        return (p3.supported_r2c(M2) and p3.supported_c2c(M0)
-                and p3.supported_c2c(M1))
-
-    def _fwd_dist_pallas_padded(self, u):
-        from .ops import pallas_fft3d as p3
-        N0, N1 = int(self.N[0]), int(self.N[1])
-        Nf = self._lastf
-        # z r2c with the Mf→Nf truncation (Nyquist ×2) AND the 1/padsize³
-        # normalisation folded into the DFT matrix — two elementwise HBM
-        # passes saved vs trunc_half_axis + a final scale multiply
-        yr, yi = p3.rfft_last_planar(u, nf=Nf,
-                                     scale=1.0 / self.padsize ** 3)
-        yr, yi = p3.fft_axis_planar(yr, yi, axis=1)      # y at M1
-        yr = trunc_full_axis(yr, 1, N1)
-        yi = trunc_full_axis(yi, 1, N1)
-
-        def work(t):
-            ar, ai = p3.fft_axis_planar(t[0], t[1], axis=0)   # x at M0
-            return trunc_full_axis(ar, 0, N0), trunc_full_axis(ai, 0, N0)
-
-        yr, yi = self._stage((yr, yi), self._dist_axis, 1, 0, work,
-                             pipeline_axis=2)
-        x = lax.complex(yr, yi)[..., :Nf]
-        return self._sym_nyq(x)
-
-    def _bwd_dist_pallas_padded(self, fu):
-        from .ops import pallas_fft3d as p3
-        M0, M1, M2 = (int(m) for m in self.M)
-        Nf = self._lastf
-        br = jnp.real(fu).astype(jnp.float32)
-        bi = jnp.imag(fu).astype(jnp.float32)
-
-        def pre(t):
-            ar = pad_full_axis(t[0], 0, M0)
-            ai = pad_full_axis(t[1], 0, M0)
-            return p3.fft_axis_planar(ar, ai, axis=0, inverse=True)
-
-        yr, yi = self._stage((br, bi), self._dist_axis, 0, 1,
-                             pipeline_axis=2, pre_fn=pre)
-        yr = pad_full_axis(yr, 1, M1)
-        yi = pad_full_axis(yi, 1, M1)
-        yr, yi = p3.fft_axis_planar(yr, yi, axis=1, inverse=True)
-        # z c2r with the Nf→Mf zero-pad (halved Nyquist row) and the
-        # padsize³ normalisation folded into the matrix
-        yr, yi = p3.fit_width(yr, yi, p3._round_up(Nf, 128))
-        u = p3.irfft_last_planar(yr, yi, M2, nf_in=Nf,
-                                 scale=self.padsize ** 3)
-        return u.astype(self.float)
-
     def _fwd_local(self, u, dealias):
         # The single transpose overlaps the axis-0 FFT when
         # communication="pipelined", chunked on the independent Hermitian axis
         # (BASELINE config 5) — on the plain AND the 3/2-rule padded path.
-        # Padded: the stage-wise-truncating planar pipeline beats the serial
-        # whole-M-grid chain even at P==1 (21.0 vs 24.3 ms at 256³ — later
-        # stages run at N-truncated, not M, widths), so it is checked FIRST.
-        if dealias == "3/2-rule" and self._pallas_dist_padded_ok():
-            return self._fwd_dist_pallas_padded(u)
-        if self.P == 1 and self._pallas3d_ok(dealias):
-            return self._fwd_serial_pallas(u, dealias)
-        if self._pallas_dist_ok(dealias):
-            return self._fwd_dist_pallas(u, dealias)
         if dealias == "3/2-rule":
             x = self._fft_yz(u)                               # (Mp0, M1, Mf)
             x = trunc_full_axis(x, 1, int(self.N[1]))
@@ -826,12 +276,6 @@ class _Slab3D(_PackedDist1D, BaseFFT):
         return x
 
     def _bwd_local(self, fu, dealias):
-        if dealias == "3/2-rule" and self._pallas_dist_padded_ok():
-            return self._bwd_dist_pallas_padded(fu)
-        if self.P == 1 and self._pallas3d_ok(dealias):
-            return self._bwd_serial_pallas(fu, dealias)
-        if self._pallas_dist_ok(dealias):
-            return self._bwd_dist_pallas(fu, dealias)
         if dealias == "2/3-rule":
             fu = jnp.where(self._dealias_local(), fu, 0)
         if dealias == "3/2-rule":
@@ -848,13 +292,13 @@ class _Slab3D(_PackedDist1D, BaseFFT):
 
     # -- double-word (emulated fp64) local pipelines ---------------------------
     #
-    # precision="double" on TPU resolves to policy.path == "doubleword": fields
-    # are DD / DDComplex pytrees of float32 pairs (ops.doubledouble) and the
-    # local FFT stages run the dd Stockham kernels (ops.dd_fft).  The all-to-all
+    # fp64_mode="doubleword" gives policy.path == "doubleword": fields are
+    # DD / DDComplex pytrees of float32 pairs (ops.doubledouble) and the local
+    # FFT stages run the dd Stockham kernels (ops.dd_fft).  The all-to-all
     # moves the four float32 leaves — same choreography, 2× the bytes of c64.
-    # Validated <1e-14 relative on TPU (the <1e-12 BASELINE target); NOTE: on
-    # the CPU backend, XLA's fusion-level FMA contraction degrades dd jit
-    # accuracy to ~1e-7 — CPU "double" uses native f64 instead (policy "auto").
+    # The error-free transforms assume no FMA contraction; XLA:CPU contracts
+    # inside fusions and degrades dd accuracy to ~1e-7, so "double" resolves
+    # to native float64 wherever x64 is on (policy "auto").
 
     def _fwd_local_dd(self, u, dealias):
         from .ops import dd_fft as df
@@ -929,50 +373,10 @@ class _Slab3D(_PackedDist1D, BaseFFT):
         return self._smap(lambda fu: local(fu, dealias),
                           in_specs=self.complex_spec(), out_specs=out_spec)
 
-    # -- packed-Hermitian planar interface gate --------------------------------
-
-    def _packed_iface_ok(self, dealias) -> bool:
-        # R2C only (the packed z-layout has no C2C meaning)
-        return (self._lastf != int(self.N[2])
-                and self._pallas_dist_ok(dealias))
-
-    # -- batched multi-component transforms -----------------------------------
-
-    def forward_fields_fn(self, dealias=None):
-        """(C,) + real -> (C,) + complex.  Serial MXU path: the whole stack
-        rides ONE batched kernel chain (ops.pallas_fft3d batches leading
-        dims into the grid) — one launch sequence instead of C."""
-        if (self.P == 1 and dealias != "3/2-rule"
-                and self._lastf != int(self.N[2])
-                and self._pallas3d_ok(dealias)):
-            from .ops import pallas_fft3d as p3
-
-            def fwd(U):
-                x = p3.rfft3d(U)
-                if dealias == "2/3-rule":
-                    x = jnp.where(self._dealias_local(), x, 0)
-                return x
-            return fwd
-        return super().forward_fields_fn(dealias)
-
-    def backward_fields_fn(self, dealias=None):
-        if (self.P == 1 and dealias != "3/2-rule"
-                and self._lastf != int(self.N[2])
-                and self._pallas3d_ok(dealias)):
-            from .ops import pallas_fft3d as p3
-            s = tuple(int(n) for n in self.N)
-
-            def bwd(FU):
-                if dealias == "2/3-rule":
-                    FU = jnp.where(self._dealias_local(), FU, 0)
-                return p3.irfft3d(FU, s).astype(self.float)
-            return bwd
-        return super().backward_fields_fn(dealias)
-
     # -- dd field construction ----------------------------------------------------
 
     def shard_real_dd(self, u):
-        """Host float64 physical field → sharded DD (TPU doubleword mode)."""
+        """Host float64 physical field → sharded DD (doubleword mode)."""
         from .ops.doubledouble import DD
         d = DD.from_f64(np.asarray(u, np.float64))
         sh = NamedSharding(self.mesh, P(AXIS, None, None))
@@ -1125,90 +529,3 @@ class C2C(_Slab3D):
         d = DDComplex.from_c128(np.asarray(u, np.complex128))
         sh = NamedSharding(self.mesh, P(AXIS, None, None))
         return jax.tree.map(lambda v: jax.device_put(v, sh), d)
-
-    # -- Pallas 3D serial fast path (c2c chain) --------------------------------
-
-    def _pallas3d_ok(self, dealias) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if os.environ.get("MPIFFT4PY_TPU_FORCE_DIST"):
-            return False
-        if self.policy.path != "native" or self.complex != np.complex64:
-            return False
-        if jax.default_backend() != "tpu":
-            return False
-        from .ops import pallas_fft3d as p3
-        dims = self.M if dealias == "3/2-rule" else self.N
-        return (p3.supported_c2c_last(int(dims[2]))
-                and p3.supported_c2c(int(dims[0]))
-                and p3.supported_c2c(int(dims[1])))
-
-    # -- Pallas distributed pipeline (planar c2c — no packed riders needed) ----
-
-    def _pallas_dist_ok(self, dealias) -> bool:
-        import os
-        if os.environ.get("MPIFFT4PY_TPU_PALLAS", "1") in ("0", "false"):
-            return False
-        if self.policy.path != "native" or self.complex != np.complex64:
-            return False
-        if not (jax.default_backend() == "tpu"
-                or os.environ.get("MPIFFT4PY_TPU_PALLAS_DIST") == "force"):
-            return False
-        if dealias == "3/2-rule":
-            return False
-        from .ops import pallas_fft3d as p3
-        N0, N1, N2 = (int(n) for n in self.N)
-        return (p3.supported_c2c_last(N2) and p3.supported_c2c(N0)
-                and p3.supported_c2c(N1))
-
-    def _fwd_dist_pallas(self, u, dealias):
-        from .ops import pallas_fft3d as p3
-        xr = jnp.real(u).astype(jnp.float32)
-        xi = jnp.imag(u).astype(jnp.float32)
-        xr, xi = p3.fft_last_planar_c2c(xr, xi)
-        xr, xi = p3.fft_axis_planar(xr, xi, axis=1)
-        xr, xi = self._stage((xr, xi), AXIS, 1, 0,
-                             lambda t: p3.fft_axis_planar(t[0], t[1], axis=0),
-                             pipeline_axis=2)
-        x = lax.complex(xr, xi)
-        if dealias == "2/3-rule":
-            x = jnp.where(self._dealias_local(), x, 0)
-        return x
-
-    def _bwd_dist_pallas(self, fu, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "2/3-rule":
-            fu = jnp.where(self._dealias_local(), fu, 0)
-        xr = jnp.real(fu).astype(jnp.float32)
-        xi = jnp.imag(fu).astype(jnp.float32)
-        xr, xi = self._stage((xr, xi), AXIS, 0, 1, pipeline_axis=2,
-                             pre_fn=lambda t: p3.fft_axis_planar(
-                                 t[0], t[1], axis=0, inverse=True))
-        xr, xi = p3.fft_axis_planar(xr, xi, axis=1, inverse=True)
-        xr, xi = p3.fft_last_planar_c2c(xr, xi, inverse=True)
-        return lax.complex(xr, xi)
-
-    def _fwd_serial_pallas(self, u, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "3/2-rule":
-            x = p3.cfft3d(u)
-            x = trunc_full_axis(x, 0, int(self.N[0]))
-            x = trunc_full_axis(x, 1, int(self.N[1]))
-            x = trunc_full_axis(x, 2, int(self.N[2]))
-            return x * self.complex.type(1.0 / self.padsize ** 3)
-        x = p3.cfft3d(u)
-        if dealias == "2/3-rule":
-            x = jnp.where(self._dealias_local(), x, 0)
-        return x
-
-    def _bwd_serial_pallas(self, fu, dealias):
-        from .ops import pallas_fft3d as p3
-        if dealias == "2/3-rule":
-            fu = jnp.where(self._dealias_local(), fu, 0)
-        if dealias == "3/2-rule":
-            x = pad_full_axis(fu, 0, int(self.M[0]))
-            x = pad_full_axis(x, 1, int(self.M[1]))
-            x = pad_full_axis(x, 2, int(self.M[2]))
-            return p3.cfft3d(x, inverse=True) * self.complex.type(self.padsize ** 3)
-        return p3.cfft3d(fu, inverse=True)

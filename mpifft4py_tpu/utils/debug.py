@@ -88,36 +88,4 @@ def validate(FFT, seed: int = 0) -> Dict[str, float]:
         return jnp.abs(pu - ps) / pu
 
     par = float(jax.jit(parseval)(u, fu))
-    out = {"roundtrip": rt, "linearity": lin, "parseval": par}
-
-    # packed-Hermitian fast interface, when this decomposition serves it:
-    # packed roundtrip identity + agreement of the packed forward with the
-    # complex forward (body modes; the plane-0 rider is purified under the
-    # interface's 2/3-rule mask, so compare the masked complex spectrum)
-    try:
-        packed_ok = FFT._packed_iface_ok("2/3-rule")
-    except Exception:
-        packed_ok = False
-    if packed_ok:
-        fwd_p = jax.jit(FFT.forward_packed_fn("2/3-rule"))
-        bwd_p = jax.jit(FFT.backward_packed_fn())
-        pr, pi = fwd_p(u)
-        up = bwd_p((pr, pi))
-        fu_m = fwd(u, dealias="2/3-rule")
-        um = bwd(fu_m)
-        out["packed_roundtrip"] = float(jax.jit(
-            lambda a, b: jnp.max(jnp.abs(a - b))
-            / jnp.maximum(jnp.max(jnp.abs(b)), 1e-30))(up, um))
-        h = int(FFT.N[-1]) // 2
-        perm = getattr(FFT, "packed_z_perm", None)
-
-        def body_agree(pr, pi, fu_m):
-            fc = fu_m[..., :h]
-            if perm is not None:   # DIF z-order interface: permute the oracle
-                fc = jnp.take(fc, jnp.asarray(perm), axis=-1)
-            d = jnp.maximum(jnp.max(jnp.abs(fc)), 1e-30)
-            return jnp.maximum(jnp.max(jnp.abs(pr - jnp.real(fc))),
-                               jnp.max(jnp.abs(pi - jnp.imag(fc)))) / d
-
-        out["packed_forward"] = float(jax.jit(body_agree)(pr, pi, fu_m))
-    return out
+    return {"roundtrip": rt, "linearity": lin, "parseval": par}

@@ -1,8 +1,8 @@
 """Test harness: simulated 8-device CPU mesh (SURVEY.md §4).
 
 The reference tested distributed correctness with ``mpirun -np {1,2,4,8}`` local
-processes; the TPU-native equivalent is a forced 8-device CPU backend so
-slab/pencil/line collectives are exercised without a pod.  x64 is enabled so
+processes; the JAX equivalent is a forced 8-device CPU backend so
+slab/pencil/line collectives are exercised without a multi-GPU machine.  x64 is enabled so
 "double" precision resolves to native float64 on this backend, giving exact
 numpy oracles.
 """

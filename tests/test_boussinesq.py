@@ -84,34 +84,3 @@ def test_boussinesq_slab_pencil_agree():
     S2 = s2.step(s2.taylor_green_stratified())
     assert np.allclose(np.asarray(S1), np.asarray(S2)[..., :s2.FFT.Nf],
                        atol=1e-10)
-
-
-def test_boussinesq_packed_matches_complex(rng):
-    """One Boussinesq RK4 step in the packed layout == complex layout."""
-    import os
-    from jax.experimental.pallas import tpu as pltpu
-
-    os.environ["MPIFFT4PY_TPU_PALLAS_DIST"] = "force"
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            shape = (16, 16, 256)
-            FFT = slab.R2C(np.array(shape), np.array([TAU] * 3), 1, "single")
-            kw = dict(nu=0.01, kappa=0.02, dt=0.001, Ri=1.0,
-                      dealias="2/3-rule")
-            sc = Boussinesq3D(FFT, **kw)
-            sp = Boussinesq3D(FFT, spectral_layout="packed", **kw)
-            Sc = sc.taylor_green_stratified()
-            Sp = sp.taylor_green_stratified()
-            ec, et_c = sc.energies(Sc)
-            ep, et_p = sp.energies(Sp)
-            assert abs(ec - ep) < 1e-6 and abs(et_c - et_p) < 1e-6
-            Sc = sc.step(Sc)
-            Sp = sp.step(Sp)
-            got = np.asarray(sp.from_packed(Sp))
-            ref = np.asarray(Sc)[..., :got.shape[-1]]
-            assert np.abs(got - ref).max() < 1e-5
-            ec, et_c = sc.energies(Sc)
-            ep, et_p = sp.energies(Sp)
-            assert abs(ec - ep) < 1e-6 and abs(et_c - et_p) < 1e-6
-    finally:
-        os.environ.pop("MPIFFT4PY_TPU_PALLAS_DIST", None)

@@ -23,22 +23,6 @@ def test_validate_all_decompositions(make):
     assert rep["parseval"] < 1e-6, rep   # f32 accumulation in the check itself
 
 
-def test_validate_covers_packed_interface(monkeypatch):
-    """When the decomposition serves the packed fast interface, validate()
-    adds packed_roundtrip / packed_forward residuals (vs the masked complex
-    path)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    monkeypatch.setenv("MPIFFT4PY_TPU_PALLAS_DIST", "force")
-    with pltpu.force_tpu_interpret_mode():
-        FFT = slab.R2C(np.array([16, 16, 256]), np.array([TAU] * 3), 4,
-                       "single")
-        assert FFT._packed_iface_ok("2/3-rule")
-        rep = validate(FFT)
-        assert rep["packed_roundtrip"] < 2e-5, rep
-        assert rep["packed_forward"] < 2e-5, rep
-
-
 def test_debug_mode_traps_nans():
     import jax
     import jax.numpy as jnp

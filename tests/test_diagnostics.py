@@ -1,7 +1,6 @@
 """Energy spectrum / dissipation diagnostics + inviscid conservation physics."""
 
 import numpy as np
-import pytest
 
 from mpifft4py_tpu import slab
 from mpifft4py_tpu.models.navier_stokes import NavierStokes3D
@@ -23,34 +22,16 @@ def test_spectrum_parseval_consistent():
     assert eps > 0
 
 
-def test_spectrum_packed_matches_complex(rng, monkeypatch):
-    """energy_spectrum_packed on the (Sr, Si) pair == energy_spectrum on the
-    unpacked complex state (packed layout needs (N2/2) % 128 == 0)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from mpifft4py_tpu.models.diagnostics import energy_spectrum_packed
-
-    monkeypatch.setenv("MPIFFT4PY_TPU_PALLAS_DIST", "force")
-    with pltpu.force_tpu_interpret_mode():
-        shape = (16, 16, 256)
-        FFT = slab.R2C(np.array(shape), np.array([TAU] * 3), 4, "single")
-        s = NavierStokes3D(FFT, nu=0.01, dt=0.001, dealias="2/3-rule",
-                           spectral_layout="packed")
-        U = s.step(s.taylor_green())      # one step: fill more shells
-        Ep = energy_spectrum_packed(FFT, U)
-        Ec = energy_spectrum(FFT, s.from_packed(U))
-        assert Ep.shape == Ec.shape
-        assert np.abs(Ep - Ec).max() < 1e-10 * max(Ec.max(), 1e-30)
-        assert abs(Ep.sum() - s.energy(U)) < 1e-9
-        from mpifft4py_tpu.models.diagnostics import dissipation_packed
-        ep = dissipation_packed(FFT, U, nu=0.01)
-        ec = dissipation(FFT, s.from_packed(U), nu=0.01)
-        assert abs(ep - ec) < 1e-9 * max(abs(ec), 1e-30)
-        # solver-level dispatch mirrors both paths
-        assert np.abs(s.spectrum(U) - Ep).max() == 0.0
-        s2 = NavierStokes3D(FFT, nu=0.01, dt=0.001, dealias="2/3-rule")
-        U2 = s2.taylor_green()
-        assert np.abs(s2.spectrum(U2)
-                      - np.asarray(energy_spectrum(FFT, U2))).max() == 0.0
+def test_solver_spectrum_matches_diagnostic():
+    """SpectralSolver.spectrum bins the velocity components exactly as
+    diagnostics.energy_spectrum does, and sums to the solver's energy."""
+    shape = (16, 16, 16)
+    FFT = slab.R2C(np.array(shape), np.array([TAU] * 3), 4, "double")
+    s = NavierStokes3D(FFT, nu=0.01, dt=0.001, dealias="2/3-rule")
+    U = s.step(s.taylor_green())      # one step: fill more shells
+    E = s.spectrum(U)
+    assert np.abs(E - np.asarray(energy_spectrum(FFT, U))).max() == 0.0
+    assert abs(E.sum() - s.energy(U)) < 1e-10
 
 
 def test_inviscid_energy_conservation():

@@ -1,0 +1,13 @@
+"""Solver-family matrix, MHD and Boussinesq: every integrator on slab P=1, slab
+P=4 and pencil 2×2 (cases in family_cases.py)."""
+
+import pytest
+
+from family_cases import DECOMPS, INTEGRATORS, run_case
+
+
+@pytest.mark.parametrize("decomp", DECOMPS)
+@pytest.mark.parametrize("integrator", INTEGRATORS)
+@pytest.mark.parametrize("model", ["mhd", "bq"])
+def test_one_step(model, integrator, decomp):
+    run_case(model, decomp, integrator)

@@ -1,4 +1,4 @@
-"""Matmul (four-step/MXU) FFT kernels vs numpy — every size in the plan table.
+"""Matmul (four-step einsum) FFT kernels vs numpy — every size in the plan table.
 
 Sizes cover powers of two, the 3/2-rule padded grids (3·2^k), odd radices, and
 primes (single dense-DFT fallback).
@@ -69,6 +69,6 @@ def test_dispatch_override(rng, monkeypatch):
     monkeypatch.setenv("MPIFFT4PY_TPU_FFT_BACKEND", "xla")
     assert not fc.use_matmul_fft(256)
     monkeypatch.delenv("MPIFFT4PY_TPU_FFT_BACKEND")
-    # XLA is the default everywhere until the fused Pallas tier beats it
-    assert not fc.use_matmul_fft(256, platform="cpu")
-    assert not fc.use_matmul_fft(256, platform="tpu")
+    # XLA's FFT is the default
+    assert not fc.use_matmul_fft(256)
+    assert not fc.use_matmul_fft(4096)

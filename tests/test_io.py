@@ -43,51 +43,6 @@ def test_save_load_state_stack(rng, tmp_path):
     assert abs(e1 - e2) < 1e-12
 
 
-def test_save_load_packed_state(rng, tmp_path, monkeypatch):
-    """The packed (Ur, Ui) float-pair state checkpoints without a complex
-    materialisation and restores onto the packed sharding; the restored run
-    continues identically."""
-    from jax.experimental.pallas import tpu as pltpu
-    from mpifft4py_tpu.models.navier_stokes import NavierStokes3D
-
-    monkeypatch.setenv("MPIFFT4PY_TPU_PALLAS_DIST", "force")
-    with pltpu.force_tpu_interpret_mode():
-        _packed_state_roundtrip(rng, tmp_path)
-
-
-def test_save_load_packed_state_wide_pencil(rng, tmp_path, monkeypatch):
-    """Same over the row-sharded WIDE pencil packed layout (P2 > 1)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    monkeypatch.setenv("MPIFFT4PY_TPU_PALLAS_DIST", "force")
-    with pltpu.force_tpu_interpret_mode():
-        FFT = pencil.R2C(np.array([16, 16, 256]), np.array([TAU] * 3), 4,
-                         "single", P1=2)
-        assert FFT.P2 == 2
-        _packed_state_roundtrip(rng, tmp_path, FFT)
-
-
-def _packed_state_roundtrip(rng, tmp_path, FFT=None):
-    from mpifft4py_tpu.models.navier_stokes import NavierStokes3D
-
-    shape = (16, 16, 256)
-    if FFT is None:
-        FFT = slab.R2C(np.array(shape), np.array([TAU] * 3), 4, "single")
-    s = NavierStokes3D(FFT, nu=0.01, dt=0.001, dealias="2/3-rule",
-                       spectral_layout="packed")
-    U = s.taylor_green()
-    p = str(tmp_path / "packed.npz")
-    io.save_state(p, FFT, U, step=3, t=0.003)
-    U2, meta = io.load_state(p, FFT)
-    assert bool(meta["packed"]) and int(meta["step"]) == 3
-    assert isinstance(U2, tuple) and len(U2) == 2
-    for a, b in zip(U, U2):
-        assert np.abs(np.asarray(a) - np.asarray(b)).max() == 0
-    e1 = s.energy(s.step(U))
-    e2 = s.energy(s.step(U2))
-    assert abs(e1 - e2) < 1e-12
-
-
 def test_load_rejects_wrong_grid(rng, tmp_path):
     N = 16
     FFT = slab.R2C(np.array([N] * 3), np.array([TAU] * 3), 2, "double")
@@ -130,7 +85,7 @@ def test_regrid_restart_at_higher_resolution(rng, tmp_path):
     F2 = slab.R2C(np.array([24] * 3), L, 4, "double")
     s2 = NavierStokes3D(F2, nu=0.01, dt=0.005, dealias="2/3-rule")
     U1, meta = io.load_state(p, F1)
-    # numpy in -> numpy out: NO complex device transfer (relay-safe path)
+    # numpy in -> numpy out: no device transfer
     fu_fine = regrid(F1.gather(U1), (24, 24, 24))
     assert isinstance(fu_fine, np.ndarray)
     U2 = F2.shard_complex(fu_fine)

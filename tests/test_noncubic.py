@@ -70,19 +70,3 @@ def test_scaled_wavenumbers_anisotropic():
     du = np.asarray(FFT.ifftn(1j * np.asarray(Ks[1]) * np.asarray(fu)))
     ref = (2 * np.pi * 3 / L[1]) * np.cos(2 * np.pi * 3 * X[1] / L[1])
     assert np.abs(du - ref).max() < 1e-8
-
-
-def test_pallas3d_noncubic(rng):
-    """Interpret-mode parity of the MXU pipeline on distinct dims."""
-    from jax.experimental.pallas import tpu as pltpu
-    import jax.numpy as jnp
-    from mpifft4py_tpu.ops import pallas_fft3d as p3
-
-    with pltpu.force_tpu_interpret_mode():
-        u = rng.standard_normal((16, 64, 256)).astype(np.float32)
-        fu = np.asarray(p3.rfft3d(jnp.asarray(u)))
-        ref = np.fft.rfftn(u.astype(np.float64))
-        assert np.abs(fu - ref).max() / np.abs(ref).max() < 2e-6
-        ub = np.asarray(p3.irfft3d(jnp.asarray(fu.astype(np.complex64)),
-                                   (16, 64, 256)))
-        assert np.abs(ub - u).max() < 2e-5

@@ -1,6 +1,6 @@
 """3/2-rule forward of a *product* field vs the exact alias-sum oracle.
 
-ADVICE r1: trunc_half_axis doubles the z-Nyquist coefficient, which equals
+trunc_half_axis doubles the z-Nyquist coefficient, which equals
 the true alias sum  ĉ_M[k0,k1,N/2] + conj(ĉ_M[−k0,−k1,N/2])  only when that
 plane is self-conjugate — true for round trips, false for a general dealiased
 product (u·v).  The padded forwards now Hermitian-symmetrize that plane

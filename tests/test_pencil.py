@@ -36,9 +36,8 @@ def test_pencil_vs_numpy(rng, P1, precision):
 @pytest.mark.parametrize("precision", ["single", "double"])
 @pytest.mark.parametrize("communication", ["Alltoall", "pipelined"])
 def test_pencil_matrix(rng, alignment, precision, communication):
-    """The full option matrix — every cell must work, no silent fallbacks
-    (VERDICT r1 items 3/4): alignment x precision x communication, plain,
-    2/3-rule, and 3/2-rule."""
+    """The full option matrix — every cell must work, no silent fallbacks:
+    alignment x precision x communication, plain, 2/3-rule, and 3/2-rule."""
     N = 16
     FFT = make(N, 8, P1=2, precision=precision, alignment=alignment,
                communication=communication, pipeline_chunks=3)
@@ -172,7 +171,7 @@ def test_pencil_y_wavenumbers(rng):
     assert np.array_equal(K[2][0, 0, :], np.arange(FFT.Nfp))
 
 
-# -- pencil.C2C (VERDICT r2 next-step 3: the one blueprint hole) --------------
+# -- pencil.C2C -------------------------------------------------------------------
 
 
 def make_c2c(N, comm=8, P1=None, precision="double", **kw):

@@ -47,7 +47,7 @@ def test_pencil_pipelined_matches_dense(rng, P1):
 @pytest.mark.parametrize("cls", ["slab", "pencilX", "pencilY"])
 def test_pipelined_padded_matches_dense(rng, cls):
     """3/2-rule padded transforms with overlapped collectives == dense padded
-    (VERDICT r1 item 4: BASELINE config 5 is a *dealiased* overlapped loop)."""
+    (BASELINE config 5 is a *dealiased* overlapped loop)."""
     N = 16
     args = (np.array([N] * 3), np.array([TAU] * 3), 8, "double")
     if cls == "slab":

@@ -29,7 +29,7 @@ class FakeDev:
 
 
 def test_hybrid_mesh_composition():
-    # 2 DCN-connected slices x 4 ICI devices each -> (dcn=2, p1=2, p2=2)
+    # 2 granules (hosts) x 4 devices each -> (dcn=2, p1=2, p2=2)
     devs = [FakeDev(i, i // 4) for i in range(8)]
     m = runtime.hybrid_mesh((2, 2), ("p1", "p2"), devices=devs)
     assert m.axis_names == ("dcn", "p1", "p2")
@@ -90,9 +90,9 @@ def test_pencil_hlo_two_alltoalls():
 
 def test_pipelined_hlo_chunked_collectives():
     """The pipelined schedule exposes nchunks independent all-to-alls per
-    stage — the structural prerequisite for comm/compute overlap (the async
-    start/done straddling itself is a TPU-scheduler property; see
-    benchmarks/overlap_audit.py for the on-TPU check)."""
+    stage — the structural prerequisite for comm/compute overlap (whether
+    the scheduler then overlaps them is a device property, read from a
+    profiler trace on the card)."""
     nchunks = 4
     FFT = slab.R2C(np.array([16] * 3), np.array([TAU] * 3), 8, "single",
                    communication="pipelined", pipeline_chunks=nchunks)

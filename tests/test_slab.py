@@ -177,7 +177,7 @@ def test_regrid_spectral_resampling(rng):
     assert fz.shape == (16, 16, 25)
     assert np.allclose(np.asarray(regrid(jnp.asarray(fz), (16, 16, 16))), fu,
                        atol=1e-10)
-    # numpy input stays numpy (relay-safe), identical values
+    # numpy input stays numpy, identical values
     fn = regrid(np.asarray(fu), (32, 32, 32))
     assert isinstance(fn, np.ndarray)
     assert np.allclose(fn, fu_f, atol=1e-12)
